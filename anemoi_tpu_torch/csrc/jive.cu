@@ -18,12 +18,9 @@
 //     a canonical row is below p < 2^255.  Each limb is read as its low 13
 //     bits, and bits 256..259 of a row (the top of its last limb) are
 //     dropped, so a row at or above 2^256 is taken mod 2^256.
-//   * Rounds: ARK, MDS (1 or 2 columns), open Flystel; then a final MDS
-//     and the feed-forward sum.  x^(1/alpha) is a left-to-right binary
-//     ladder over the exponent's bits (Vesta: 253 squarings, 124
-//     products; the reference's addition chain has 293 operations, and
-//     the result is the same canonical value).  Round and ladder loops stay
-//     rolled (#pragma unroll 1), which keeps the build to seconds.
+//   * The permutation (anemoi32.cuh, shared with sponge.cu): rounds of
+//     ARK, MDS and open Flystel, then a final MDS; x^(1/alpha) by a binary
+//     ladder; loops rolled.  Then the feed-forward sum.
 //   * Exit (f32_to_limbs): one Montgomery product by c_out = 2^260 mod p,
 //     then the words are cut back into 13-bit limbs.
 //   * Constants (field words, round constants, exponent bits, rounds)
@@ -44,95 +41,15 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "field32.cuh"
+#include "anemoi32.cuh"
 
-#define MAX_ROUND_COLUMNS 28  // rounds * columns of the largest 20-limb instance
 #define BLOCK 128
-
-// The layout matches anemoi_tpu_torch/ff/cuda_backend.py:consts_words.
-struct JiveConsts {
-    uint32_t p[F32_WORDS];
-    uint32_t n0;  // -p^-1 mod 2^32
-    uint32_t c_in[F32_WORDS];  // 2^252 mod p
-    uint32_t c_out[F32_WORDS];  // 2^260 mod p
-    uint32_t beta[F32_WORDS];  // R' form
-    uint32_t delta[F32_WORDS];  // R' form
-    uint32_t inv_alpha[F32_WORDS];  // the exponent 1/alpha mod (p - 1)
-    uint32_t inv_alpha_bits;
-    uint32_t rounds;
-    uint32_t C[MAX_ROUND_COLUMNS][F32_WORDS];  // [round * columns + column], R' form
-    uint32_t D[MAX_ROUND_COLUMNS][F32_WORDS];
-};
-static_assert(sizeof(JiveConsts) == 499 * 4, "JiveConsts layout");
-static_assert(sizeof(JiveConsts) <= 4096, "JiveConsts must fit the kernel parameter space");
-
-F32_FN void copy8(uint32_t r[F32_WORDS], const uint32_t a[F32_WORDS]) {
-#pragma unroll
-    for (int j = 0; j < F32_WORDS; ++j) r[j] = a[j];
-}
-
-F32_FN void mul_g(uint32_t r[F32_WORDS], const uint32_t a[F32_WORDS], const JiveConsts& c) {
-    f32_mont_mul(r, a, c.beta, c.p, c.n0);
-}
-
-// x^(1/alpha): left-to-right binary ladder over the exponent's bits.
-F32_FN void exp_inv_alpha(uint32_t r[F32_WORDS], const uint32_t x[F32_WORDS],
-                                              const JiveConsts& c) {
-    uint32_t acc[F32_WORDS];
-    copy8(acc, x);
-#pragma unroll 1
-    for (int bit = (int)c.inv_alpha_bits - 2; bit >= 0; --bit) {
-        f32_mont_sqr(acc, acc, c.p, c.n0);
-        if ((c.inv_alpha[bit >> 5] >> (bit & 31)) & 1u) f32_mont_mul(acc, acc, x, c.p, c.n0);
-    }
-    copy8(r, acc);
-}
-
-// Open Flystel: x -= g*y^2 ; y -= x^(1/alpha) ; x += g*y^2 + delta.
-F32_FN void flystel(uint32_t x[F32_WORDS], uint32_t y[F32_WORDS], const JiveConsts& c) {
-    uint32_t t[F32_WORDS];
-    f32_mont_sqr(t, y, c.p, c.n0);
-    mul_g(t, t, c);
-    f32_sub(x, x, t, c.p);
-    exp_inv_alpha(t, x, c);
-    f32_sub(y, y, t, c.p);
-    f32_mont_sqr(t, y, c.p, c.n0);
-    mul_g(t, t, c);
-    f32_add(x, x, t, c.p);
-    f32_add(x, x, c.delta, c.p);
-}
-
-template <int W>
-F32_FN void mds(uint32_t s[W][F32_WORDS], const JiveConsts& c) {
-    if constexpr (W == 2) {
-        f32_add(s[1], s[1], s[0], c.p);
-        f32_add(s[0], s[0], s[1], c.p);
-    } else {
-        uint32_t t[F32_WORDS];
-        mul_g(t, s[1], c);
-        f32_add(s[0], s[0], t, c.p);
-        mul_g(t, s[0], c);
-        f32_add(s[1], s[1], t, c.p);
-        mul_g(t, s[2], c);
-        f32_add(s[3], s[3], t, c.p);
-        mul_g(t, s[3], c);
-        f32_add(s[2], s[2], t, c.p);
-        // swap the two y words, then the pseudo-Hadamard transform
-        copy8(t, s[2]);
-        copy8(s[2], s[3]);
-        copy8(s[3], t);
-        f32_add(s[2], s[2], s[0], c.p);
-        f32_add(s[3], s[3], s[1], c.p);
-        f32_add(s[0], s[0], s[2], c.p);
-        f32_add(s[1], s[1], s[3], c.p);
-    }
-}
 
 // Jive-k of one state: limb row r of the state at in[r * n], of the result
 // at out[r * n].
 template <int W, int K>
-F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const JiveConsts& c) {
-    constexpr int COLS = W / 2, OUT = W / K;
+F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiConsts& c) {
+    constexpr int OUT = W / K;
     uint32_t s[W][F32_WORDS];
 #pragma unroll
     for (int w = 0; w < W; ++w) f32_from_limbs(s[w], in + (size_t)w * F32_LIMBS * n, n, c.c_in, c.p, c.n0);
@@ -144,18 +61,7 @@ F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const JiveConst
 #pragma unroll
         for (int j = 1; j < K; ++j) f32_add(ff[i], ff[i], s[i + OUT * j], c.p);
     }
-#pragma unroll 1
-    for (int r = 0; r < (int)c.rounds; ++r) {
-#pragma unroll
-        for (int i = 0; i < COLS; ++i) {
-            f32_add(s[i], s[i], c.C[r * COLS + i], c.p);
-            f32_add(s[COLS + i], s[COLS + i], c.D[r * COLS + i], c.p);
-        }
-        mds<W>(s, c);
-#pragma unroll
-        for (int i = 0; i < COLS; ++i) flystel(s[i], s[COLS + i], c);
-    }
-    mds<W>(s, c);
+    permute_state<W>(s, c);
 #pragma unroll
     for (int i = 0; i < OUT; ++i) {
 #pragma unroll
@@ -165,11 +71,9 @@ F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const JiveConst
 }
 
 #ifdef __CUDACC__
-#include <cuda_runtime.h>
-
 template <int W, int K>
 __global__ void __launch_bounds__(BLOCK) jive_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                                                     long long n, const __grid_constant__ JiveConsts c) {
+                                                     long long n, const __grid_constant__ AnemoiConsts c) {
     const long long lane = (long long)blockIdx.x * BLOCK + threadIdx.x;
     if (lane >= n) return;  // the ragged edge
     jive_lane<W, K>(out + lane, in + lane, (size_t)n, c);
@@ -182,32 +86,24 @@ extern "C" {
 int anemoi_jive(const void* in, void* out, long long n, int width, int k, const void* consts, int device,
                 void* stream) {
     if (!((width == 2 && k == 2) || (width == 4 && (k == 2 || k == 4)))) return (int)cudaErrorInvalidValue;
-    int prev;
-    cudaError_t err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    JiveConsts c;
+    AnemoiConsts c;
     memcpy(&c, consts, sizeof c);
     const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK)), block(BLOCK);
     cudaStream_t s = (cudaStream_t)stream;
     const int32_t* x = (const int32_t*)in;
     int32_t* y = (int32_t*)out;
-    if (width == 2)
-        jive_kernel<2, 2><<<grid, block, 0, s>>>(x, y, n, c);
-    else if (k == 2)
-        jive_kernel<4, 2><<<grid, block, 0, s>>>(x, y, n, c);
-    else
-        jive_kernel<4, 4><<<grid, block, 0, s>>>(x, y, n, c);
-    err = cudaGetLastError();
-    if (prev != device) {
-        const cudaError_t back = cudaSetDevice(prev);
-        if (err == cudaSuccess) err = back;
-    }
-    return (int)err;
+    return launch_on(device, [&] {
+        if (width == 2)
+            jive_kernel<2, 2><<<grid, block, 0, s>>>(x, y, n, c);
+        else if (k == 2)
+            jive_kernel<4, 2><<<grid, block, 0, s>>>(x, y, n, c);
+        else
+            jive_kernel<4, 4><<<grid, block, 0, s>>>(x, y, n, c);
+    });
 }
 
 const char* anemoi_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int anemoi_jive_consts_words(void) { return (int)(sizeof(JiveConsts) / 4); }
+int anemoi_jive_consts_words(void) { return (int)(sizeof(AnemoiConsts) / 4); }
 }
 #endif  // __CUDACC__

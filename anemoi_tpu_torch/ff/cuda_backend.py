@@ -1,14 +1,22 @@
-"""Fused batched Jive-k on the card: the CUDA kernel ``csrc/jive.cu``.
+"""The CUDA kernels on the card, with their plain PyTorch versions.
 
-Counterpart of ``anemoi_tpu/ff/pallas_backend.py:jive_pallas``, with its
-I/O contract: int32 [WIDTH*L, N] Montgomery limb states (13-bit limbs,
-``R = 2^(13L)``, limb-major) in, canonical int32 [(WIDTH/k)*L, N] out.
-Any N is taken; the kernel masks the ragged edge itself.
+Counterparts of ``anemoi_tpu/ff/pallas_backend.py``'s three kernels, with
+their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
+``R = 2^(13L)``, canonical), any N, the ragged edge masked in the kernel.
 
-``jive`` launches the kernel for a tensor on the card, and runs the plain
-version (``jive_plain``: the permutation of ``permutation/batched.py`` and
-the feed-forward sum over ``limb_ops``) for a tensor on the CPU.  The
-kernel covers the 20-limb fields; the 30-limb fields are not ported yet.
+  * ``jive`` (``csrc/jive.cu``, for ``jive_pallas``): fused Jive-k,
+    int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].
+  * ``permutation`` (``csrc/sponge.cu``, for ``permutation_pallas``):
+    int32 [WIDTH*L, N] -> int32 [WIDTH*L, N].
+  * ``sponge`` (``csrc/sponge.cu``, for ``sponge_pallas``): the fused
+    fixed-length sponge over messages of E >= rate elements,
+    int32 [E*L, N] -> int32 [DIGEST*L, N].
+
+Each wrapper launches its kernel for a tensor on the card, and runs its
+plain version (``*_plain``: the layers of ``permutation/batched.py`` over
+``limb_ops``) for a tensor on the CPU; it never falls back from one to the
+other.  Each counts its launches in ``<wrapper>.launches``.  The kernels
+cover the 20-limb fields; the 30-limb fields are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from . import limb_ops as lo
 
 KERNEL_SHAPES = ((2, 2), (4, 2), (4, 4))  # (WIDTH, k) instantiated in jive.cu
 _MAX_ROUND_COLUMNS = 28  # rounds * columns of the largest 20-limb instance
-_CONSTS_WORDS = 8 + 1 + 5 * 8 + 2 + 2 * _MAX_ROUND_COLUMNS * 8
+_CONSTS_WORDS = 8 + 1 + 6 * 8 + 2 + 2 * _MAX_ROUND_COLUMNS * 8
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,24 +49,58 @@ def resolve_device(device=None) -> torch.device:
 
 @lru_cache(maxsize=None)
 def consts_words(inst: InstanceParams) -> np.ndarray:
-    """The kernel's constant struct (``JiveConsts`` in jive.cu) as uint32 words."""
+    """The kernels' constant struct (``AnemoiConsts`` in anemoi32.cuh) as uint32 words."""
     kc = kernel_consts(inst)
     rc = lambda t: np.concatenate(
         [t.reshape(-1), np.zeros((_MAX_ROUND_COLUMNS - inst.rounds * inst.columns) * 8, np.uint32)]
     )
     return np.concatenate([
-        kc.p, [kc.n0], kc.c_in, kc.c_out, kc.beta, kc.delta, kc.inv_alpha,
+        kc.p, [kc.n0], kc.c_in, kc.c_out, kc.one, kc.beta, kc.delta, kc.inv_alpha,
         [kc.inv_alpha_bits, inst.rounds], rc(kc.C), rc(kc.D),
     ]).astype(np.uint32)
 
 
+@lru_cache(maxsize=None)
+def _plain_permute(inst: InstanceParams):
+    return permutation_fn(inst)
+
+
+def _check(inst: InstanceParams, x, rows: int) -> bool:
+    """Validates an int32 [rows, N] input; True when it goes to a kernel."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"expected an int32 tensor [{rows}, N], got {getattr(x, 'dtype', type(x))} "
+                         f"{tuple(getattr(x, 'shape', ()))}")
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not inst.field.has_kernel_form:
+        raise NotImplementedError(f"{inst.field.name}: the kernels cover the 20-limb fields only")
+    if not x.is_contiguous():
+        raise ValueError("the input must be contiguous")
+    return True
+
+
+def _launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, out: torch.Tensor, *args) -> None:
+    """Calls a launcher of the C interface on x's device and current stream."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(lib, name)(x.data_ptr(), out.data_ptr(), x.shape[1], *args, x.device.index, stream)
+    if err:
+        raise RuntimeError(f"kernel launch failed: {name}: {lib.anemoi_error_string(err).decode()}")
+
+
+# --------------------------------------------------------------------------
+# Jive-k
+# --------------------------------------------------------------------------
+
+
 def jive_plain(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the kernel, on any device."""
+    """The plain PyTorch version of the Jive kernel, on any device."""
     W, L = inst.width, inst.field.n_limbs
     fc = lo.field_consts(inst.field)
     c = W // k
-    states = x.reshape(W, L, -1)
-    post = permutation_fn(inst)(states)
+    states = x.reshape(W, L, x.shape[1])
+    post = _plain_permute(inst)(states)
     outs = []
     for i in range(c):
         acc = lo.add_mod(states[i], post[i], fc)
@@ -77,27 +119,13 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
     W, L = inst.width, inst.field.n_limbs
     if (W, k) not in KERNEL_SHAPES:
         raise ValueError(f"{inst.qualified_name} has no Jive-{k}")
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != W * L:
-        raise ValueError(f"expected an int32 tensor [{W * L}, N], got {getattr(x, 'dtype', type(x))} "
-                         f"{tuple(getattr(x, 'shape', ()))}")
-    if x.device.type == "cpu":
+    if not _check(inst, x, W * L):
         return jive_plain(inst, k, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not inst.field.has_kernel_form:
-        raise NotImplementedError(f"{inst.field.name}: the kernel covers the 20-limb fields only")
-    if not x.is_contiguous():
-        raise ValueError("the input must be contiguous")
-    n = x.shape[1]
-    if n == 0:
-        return torch.empty(((W // k) * L, 0), dtype=torch.int32, device=x.device)
     lib = library().cdll
-    out = torch.empty(((W // k) * L, n), dtype=torch.int32, device=x.device)
-    words = consts_words(inst)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.anemoi_jive(x.data_ptr(), out.data_ptr(), n, W, k, words.ctypes.data, x.device.index, stream)
-    if err:
-        raise RuntimeError(f"jive kernel launch failed: {lib.anemoi_error_string(err).decode()}")
+    out = torch.empty(((W // k) * L, x.shape[1]), dtype=torch.int32, device=x.device)
+    if x.shape[1] == 0:
+        return out
+    _launch(lib, "anemoi_jive", x, out, W, k, consts_words(inst).ctypes.data)
     jive.launches += 1
     return out
 
@@ -105,20 +133,120 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
 jive.launches = 0
 
 
+# --------------------------------------------------------------------------
+# the bare permutation
+# --------------------------------------------------------------------------
+
+
+def permutation_plain(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the permutation kernel, on any device."""
+    W, L = inst.width, inst.field.n_limbs
+    return _plain_permute(inst)(x.reshape(W, L, x.shape[1])).reshape(W * L, x.shape[1])
+
+
+def permutation(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
+    """The Anemoi permutation of every state: int32 [WIDTH*L, N] -> int32
+    [WIDTH*L, N].  A CUDA tensor goes to the kernel (or the call raises), a
+    CPU tensor to ``permutation_plain``."""
+    W, L = inst.width, inst.field.n_limbs
+    if not _check(inst, x, W * L):
+        return permutation_plain(inst, x)
+    lib = sponge_library().cdll
+    out = torch.empty_like(x)
+    if x.shape[1] == 0:
+        return out
+    _launch(lib, "anemoi_permute", x, out, W, consts_words(inst).ctypes.data)
+    permutation.launches += 1
+    return out
+
+
+permutation.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the fused fixed-length sponge
+# --------------------------------------------------------------------------
+
+
+def sponge_plain(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the sponge kernel, on any device: the
+    scan composition of ``anemoi_tpu/modes/batched.py`` (rate-block adds and
+    one permutation per block, then the tail and sigma)."""
+    W, L, rate, ds = inst.width, inst.field.n_limbs, inst.rate, inst.digest_size
+    fc = lo.field_consts(inst.field)
+    permute = _plain_permute(inst)
+    elems = x.reshape(num_elements, L, x.shape[1])
+    state = [torch.zeros((L, elems.shape[-1]), dtype=x.dtype, device=x.device) for _ in range(W)]
+    full, tail = divmod(num_elements, rate)
+    for b in range(full):
+        for i in range(rate):
+            state[i] = lo.add_mod(state[i], elems[b * rate + i], fc)
+        state = list(permute(torch.stack(state)).unbind(0))
+    for i in range(tail):
+        state[i] = lo.add_mod(state[i], elems[full * rate + i], fc)
+    if tail:
+        state[tail] = lo.add_const(state[tail], fc.one_mont, fc)
+        state = list(permute(torch.stack(state)).unbind(0))
+    else:
+        state[-1] = lo.add_const(state[-1], fc.one_mont, fc)
+    return torch.cat(state[:ds], dim=0)
+
+
+def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> torch.Tensor:
+    """The sponge over N messages of E = num_elements >= rate elements:
+    int32 [E*L, N] Montgomery limbs -> int32 [DIGEST*L, N].  A CUDA tensor
+    goes to the kernel (or the call raises), a CPU tensor to ``sponge_plain``."""
+    L, rate, ds = inst.field.n_limbs, inst.rate, inst.digest_size
+    if num_elements < rate:
+        raise ValueError(f"the fused sponge takes E >= rate = {rate} elements, got {num_elements}")
+    if not _check(inst, x, num_elements * L):
+        return sponge_plain(inst, num_elements, x)
+    lib = sponge_library().cdll
+    out = torch.empty((ds * L, x.shape[1]), dtype=torch.int32, device=x.device)
+    if x.shape[1] == 0:
+        return out
+    _launch(lib, "anemoi_sponge", x, out, inst.width, num_elements, consts_words(inst).ctypes.data)
+    sponge.launches += 1
+    return out
+
+
+sponge.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the libraries
+# --------------------------------------------------------------------------
+
+
+def _load(source: str, launchers: dict, consts_fn: str) -> _build.Library:
+    built = _build.load(source)
+    lib = built.cdll
+    for name, args in launchers.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, *args,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.anemoi_error_string.argtypes = [ctypes.c_int]
+    lib.anemoi_error_string.restype = ctypes.c_char_p
+    words = getattr(lib, consts_fn)
+    words.argtypes = []
+    words.restype = ctypes.c_int
+    if words() != _CONSTS_WORDS:
+        raise RuntimeError(f"AnemoiConsts in {source} and consts_words() disagree on the layout")
+    return built
+
+
 @lru_cache(maxsize=None)
 def library() -> _build.Library:
     """jive.cu, built at first use, with its C interface declared."""
-    built = _build.load("jive.cu")
-    lib = built.cdll
-    lib.anemoi_jive.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.anemoi_jive.restype = ctypes.c_int
-    lib.anemoi_error_string.argtypes = [ctypes.c_int]
-    lib.anemoi_error_string.restype = ctypes.c_char_p
-    lib.anemoi_jive_consts_words.argtypes = []
-    lib.anemoi_jive_consts_words.restype = ctypes.c_int
-    if lib.anemoi_jive_consts_words() != _CONSTS_WORDS:
-        raise RuntimeError("JiveConsts in jive.cu and consts_words() disagree on the layout")
-    return built
+    return _load("jive.cu", {"anemoi_jive": [ctypes.c_int, ctypes.c_int]}, "anemoi_jive_consts_words")
+
+
+@lru_cache(maxsize=None)
+def sponge_library() -> _build.Library:
+    """sponge.cu, built at first use, with its C interface declared."""
+    return _load(
+        "sponge.cu",
+        {"anemoi_permute": [ctypes.c_int], "anemoi_sponge": [ctypes.c_int, ctypes.c_int]},
+        "anemoi_sponge_consts_words",
+    )

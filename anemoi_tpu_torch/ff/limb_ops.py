@@ -5,9 +5,9 @@ batch of N field elements is an int32 tensor of shape [L, N], limb-major,
 little-endian 13-bit limbs, Montgomery form with ``R = 2^(13L)``, canonical
 (below p) between operations.
 
-This is the plain version of the CUDA Jive kernel (``cuda_backend.py``):
-the CPU tests run it against the JAX package, and ``chip_smoke.py`` holds
-the kernel against it on the card.  It is written for few tensor calls,
+This is the plain version of the CUDA kernels (``cuda_backend.py``): the
+CPU tests run it against the JAX package, and ``chip_smoke.py`` holds the
+kernels against it on the card.  It is written for few tensor calls,
 not for speed: every operation works on all limbs and lanes at once.
 
   * A product is an int64 outer product [L, L, N] summed onto its
@@ -78,6 +78,8 @@ class FieldConsts:
                 pprime=col(self.pprime_limbs)[0],
                 beta=col(self.beta_mont)[0],
                 delta=col(self.delta_mont)[0],
+                r2=col(self.r2_limbs)[0],
+                unit=col(limbs_from_int(1, L))[0],
                 # r + (R - j*p) carries out of the top limb iff r >= j*p
                 reduce=col([limbs_from_int(R - j * p if j else 0, L) for j in range(3)]),
                 sub=col([limbs_from_int(j * p, L) for j in range(2)]),
@@ -237,6 +239,34 @@ def canonicalize(a, fc: FieldConsts):
 
 def exp_inv_alpha(x, fc: FieldConsts):
     return _exp_inv_alpha64(x.long(), fc, fc.on(x.device)).to(x.dtype)
+
+
+# Columns per product in to_mont / from_mont, which take whole messages:
+# the product's int64 outer product [L, 2L+1, N] of 2^18 columns is 1.7 GB
+# for L = 20.
+_CONVERT_COLUMNS = 1 << 18
+
+
+def _mul_by_column(a, name: str, fc: FieldConsts):
+    d = fc.on(a.device)
+    parts = [_mont_mul64(part.long(), getattr(d, name), d).to(a.dtype) for part in a.split(_CONVERT_COLUMNS, dim=1)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def to_mont(a, fc: FieldConsts):
+    """Canonical plain limbs -> Montgomery form: a product by R^2."""
+    return _mul_by_column(a, "r2", fc)
+
+
+def from_mont(a, fc: FieldConsts):
+    """Montgomery form -> canonical plain limbs: a product by 1."""
+    return _mul_by_column(a, "unit", fc)
+
+
+def add_const(a, const_limbs: np.ndarray, fc: FieldConsts):
+    """a + c mod p for a host constant c of canonical limbs (int32 [L])."""
+    c = torch.as_tensor(np.asarray(const_limbs, dtype=np.int64).reshape(-1, 1), device=a.device)
+    return _add64(a.long(), c, fc.on(a.device)).to(a.dtype)
 
 
 # --------------------------------------------------------------------------

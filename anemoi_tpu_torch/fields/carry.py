@@ -60,5 +60,6 @@ def from_reference_arrays(inst: InstanceParams, *, C, D, p, one_mont, r2, beta_m
             [plain(d) for d in D.reshape(-1, fp.n_limbs)],
             plain(beta_mont),
             plain(delta_mont),
+            plain(one_mont),
         )
     return InstanceTables(limbs, C, D, kernel)

@@ -4,7 +4,7 @@ Counterpart of ``anemoi_tpu/fields/params.py``: the same frozen dataclasses,
 read from this package's own copy of ``data/params.json``, with the same
 13-bit limb form (``R = 2^(13L)``) at every public boundary.
 
-On top of that it derives what the CUDA Jive kernel needs for a 20-limb
+On top of that it derives what the CUDA kernels need for a 20-limb
 field: 32-bit words, Montgomery form with ``R' = 2^256``, and the two
 boundary constants that move a value between the two Montgomery forms.
 """
@@ -137,6 +137,9 @@ class InstanceParams:
     rounds: int
     C: tuple[int, ...]  # round-major, len = rounds * columns
     D: tuple[int, ...]
+    # an explicit MDS matrix (row-major, columns x columns) for widths with
+    # no dedicated fast path; every shipped instance leaves it None
+    mds: tuple[int, ...] | None = None
 
     @property
     def qualified_name(self) -> str:
@@ -216,6 +219,7 @@ class KernelConsts:
     r2: np.ndarray  # [8] R'^2 mod p
     c_in: np.ndarray  # [8] 2^252 mod p
     c_out: np.ndarray  # [8] 2^260 mod p
+    one: np.ndarray  # [8] R' form: 2^256 mod p (the sponge's sigma)
     beta: np.ndarray  # [8] R' form
     delta: np.ndarray  # [8] R' form
     C: np.ndarray  # [rounds, columns, 8] R' form
@@ -227,8 +231,9 @@ class KernelConsts:
         return {k: np.asarray(v) for k, v in vars(self).items()}
 
 
-def kernel_consts_from_ints(inst: InstanceParams, C, D, beta: int, delta: int) -> KernelConsts:
-    """Kernel constants from plain-integer round constants and S-box constants."""
+def kernel_consts_from_ints(inst: InstanceParams, C, D, beta: int, delta: int, one: int) -> KernelConsts:
+    """Kernel constants from plain-integer round constants, S-box constants
+    and the field's one."""
     fp = inst.field
     if not fp.has_kernel_form:
         raise ValueError(f"{fp.name} has {fp.n_limbs} limbs; the kernel takes 20")
@@ -241,6 +246,7 @@ def kernel_consts_from_ints(inst: InstanceParams, C, D, beta: int, delta: int) -
         r2=words_from_int(fp.kernel_r2),
         c_in=words_from_int(fp.c_in),
         c_out=words_from_int(fp.c_out),
+        one=words_from_int(fp.kernel_mont(one)),
         beta=words_from_int(fp.kernel_mont(beta)),
         delta=words_from_int(fp.kernel_mont(delta)),
         C=rc(C),
@@ -253,7 +259,7 @@ def kernel_consts_from_ints(inst: InstanceParams, C, D, beta: int, delta: int) -
 @lru_cache(maxsize=None)
 def kernel_consts(inst: InstanceParams) -> KernelConsts:
     """The port's own derivation, from its JSON copy."""
-    return kernel_consts_from_ints(inst, inst.C, inst.D, inst.field.beta, inst.field.delta)
+    return kernel_consts_from_ints(inst, inst.C, inst.D, inst.field.beta, inst.field.delta, 1)
 
 
 @lru_cache(maxsize=None)

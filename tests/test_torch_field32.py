@@ -63,14 +63,15 @@ void t_to_limbs(int32_t* limbs, const uint32_t* a, int n, const uint32_t* c_out,
 }
 // the kernel's per-thread work, lane by lane: [width*20, n] -> [(width/k)*20, n]
 void t_jive(int32_t* out, const int32_t* in, int n, int width, int k, const uint32_t* consts) {
-    const JiveConsts& c = *(const JiveConsts*)consts;
+    const AnemoiConsts& c = *(const AnemoiConsts*)consts;
     for (int i = 0; i < n; ++i) {
         if (width == 2) jive_lane<2, 2>(out + i, in + i, (size_t)n, c);
         else if (k == 2) jive_lane<4, 2>(out + i, in + i, (size_t)n, c);
         else jive_lane<4, 4>(out + i, in + i, (size_t)n, c);
     }
 }
-int t_consts_words(void) { return (int)(sizeof(JiveConsts) / 4); }
+int t_consts_words(void) { return (int)(sizeof(AnemoiConsts) / 4); }
+int t_one_offset(void) { return (int)(offsetof(AnemoiConsts, one) / 4); }
 }
 """
 
@@ -176,6 +177,11 @@ def _host_jive(lib, inst, k, x):
 
 def test_consts_layout(lib):
     assert lib.t_consts_words() == len(cuda_backend.consts_words(get_instance("vesta", "anemoi_4_3")))
+    # the sponge's sigma: 1 in R' form, where the struct keeps it
+    off = lib.t_one_offset()
+    for field in KERNEL_FIELDS:
+        words = cuda_backend.consts_words(get_instance(field, "anemoi_2_1"))
+        assert _ints([words[off:off + 8]]) == [R_WORDS % get_field(field).p]
 
 
 @pytest.mark.parametrize("field", KERNEL_FIELDS)

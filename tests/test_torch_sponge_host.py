@@ -1,0 +1,148 @@
+"""The permutation and sponge kernels' own per-lane code, built for the host
+with g++: csrc/sponge.cu's permute_lane and sponge_lane against the port's
+golden model and the SAGE hash_field / hash_bytes vectors of the five
+20-limb fields, including whole 10 KB messages (331 elements).
+
+sponge.cu is __host__ __device__ outside its kernels, so this checks the
+very code the kernels are compiled from, without a card, with the
+constants as ``cuda_backend.consts_words`` lays them out.  Tolerance:
+exact (integer arithmetic, canonical limbs).
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from anemoi_tpu_torch.ff import cuda_backend, golden, native
+from anemoi_tpu_torch.ff.limb_ops import decode_ints, encode_ints, random_canonical
+from anemoi_tpu_torch.fields.params import INSTANCE_NAMES, KERNEL_FIELDS, get_instance, int_from_limbs
+
+from .vector_loader import load_vectors
+
+_SHIM = r"""
+#include <stddef.h>
+#include "sponge.cu"
+extern "C" {
+// the kernels' per-thread work, lane by lane, on limb-major int32 arrays
+void t_permute(int32_t* out, const int32_t* in, int n, int width, const uint32_t* consts) {
+    const AnemoiConsts& c = *(const AnemoiConsts*)consts;
+    for (int i = 0; i < n; ++i) {
+        if (width == 2) permute_lane<2>(out + i, in + i, (size_t)n, c);
+        else permute_lane<4>(out + i, in + i, (size_t)n, c);
+    }
+}
+void t_sponge(int32_t* out, const int32_t* in, int n, int width, int E, const uint32_t* consts) {
+    const AnemoiConsts& c = *(const AnemoiConsts*)consts;
+    for (int i = 0; i < n; ++i) {
+        if (width == 2) sponge_lane<2>(out + i, in + i, (size_t)n, E, c);
+        else sponge_lane<4>(out + i, in + i, (size_t)n, E, c);
+    }
+}
+int t_consts_words(void) { return (int)(sizeof(AnemoiConsts) / 4); }
+}
+"""
+
+FULL_BYTES = 10 * 1024  # bench.py's 10 KB message: 331 elements of 31 bytes
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    d = tmp_path_factory.mktemp("sponge")
+    (d / "shim.cpp").write_text(_SHIM)
+    so = d / "libsponge.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(cuda_backend._build.CSRC), "-o", str(so),
+         str(d / "shim.cpp")],
+        check=True, capture_output=True,
+    )
+    lib = ctypes.CDLL(str(so))
+    lib.t_permute.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.t_sponge.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    return lib
+
+
+def _host_sponge(lib, inst, msgs):
+    """sponge_lane over equal-length messages of plain ints -> digests as ints."""
+    E, B = len(msgs[0]), len(msgs)
+    L = inst.field.n_limbs
+    x = np.zeros((E, L, B), np.int32)
+    for e in range(E):
+        x[e] = encode_ints([m[e] for m in msgs], inst.field).numpy()
+    out = np.zeros((L, B), np.int32)
+    words = cuda_backend.consts_words(inst)
+    lib.t_sponge(out.ctypes.data, np.ascontiguousarray(x.reshape(E * L, B)).ctypes.data, B, inst.width, E,
+                 words.ctypes.data)
+    assert out.min() >= 0 and out.max() < 1 << 13
+    return decode_ints(out, inst.field)
+
+
+def _message_ints(inst, data):
+    return [int_from_limbs(row) for row in native.pack_bytes(data, inst.field)]
+
+
+def test_consts_layout(lib):
+    assert lib.t_consts_words() == len(cuda_backend.consts_words(get_instance("vesta", "anemoi_4_3")))
+
+
+@pytest.mark.parametrize("field", KERNEL_FIELDS)
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_sponge_vectors(lib, field, iname):
+    """Every length of the vectors, E < rate among them: sponge_lane takes
+    any E, though the wrappers send it E >= rate only."""
+    inst = get_instance(field, iname)
+    vec = load_vectors(field, iname)
+    for elems, want in zip(vec["hash_field"]["input"], vec["hash_field"]["output"]):
+        assert _host_sponge(lib, inst, [[e % inst.field.p for e in elems]]) == [want[0]], elems
+    chunk = inst.field.byte_chunk
+    for elems, want in zip(vec["hash_bytes"]["input"], vec["hash_bytes"]["output"]):
+        data = b"".join(int(e).to_bytes(chunk, "little") for e in elems)
+        assert _host_sponge(lib, inst, [_message_ints(inst, data)]) == [want[0]]
+
+
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_sponge_matches_golden(lib, iname):
+    """Lengths 0 to 7 (tail 0, 1 and 2, sigma on either side), a few lanes
+    each, and the empty message, whose digest is 0."""
+    inst = get_instance("pallas", iname)
+    rng = np.random.default_rng(21)
+    for E in range(8):
+        msgs = [[int.from_bytes(rng.bytes(40), "little") % inst.field.p for _ in range(E)] for _ in range(3)]
+        if E == 0:
+            out = np.zeros((20, 3), np.int32)
+            lib.t_sponge(out.ctypes.data, out.ctypes.data, 3, inst.width, 0, cuda_backend.consts_words(inst).ctypes.data)
+            assert decode_ints(out, inst.field) == [0, 0, 0]
+            continue
+        assert _host_sponge(lib, inst, msgs) == [golden.hash_field(inst, m)[0] for m in msgs], E
+
+
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_sponge_full_message(lib, iname):
+    """A whole 10 KB message, the bench's size: 331 elements."""
+    inst = get_instance("vesta", iname)
+    data = np.random.default_rng(22).bytes(FULL_BYTES)
+    elems = _message_ints(inst, data)
+    assert len(elems) == 331
+    assert _host_sponge(lib, inst, [elems]) == golden.hash_bytes(inst, data)
+
+
+@pytest.mark.parametrize("field", ["vesta", "bn_254"])
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_permute_matches_golden(lib, field, iname):
+    inst = get_instance(field, iname)
+    W, L = inst.width, inst.field.n_limbs
+    x = random_canonical(inst.field, (W, 5), np.random.default_rng(23)).transpose(1, 0, 2)  # (W, L, 5)
+    x[:, :, 0] = 0
+    x = np.ascontiguousarray(x.reshape(W * L, 5))
+    out = np.zeros_like(x)
+    lib.t_permute(out.ctypes.data, x.ctypes.data, 5, W, cuda_backend.consts_words(inst).ctypes.data)
+    states = [decode_ints(x.reshape(W, L, 5)[w], inst.field) for w in range(W)]
+    got = [decode_ints(out.reshape(W, L, 5)[w], inst.field) for w in range(W)]
+    for b in range(5):
+        assert [got[w][b] for w in range(W)] == golden.permutation(inst, [states[w][b] for w in range(W)])
