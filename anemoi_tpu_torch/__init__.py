@@ -1,11 +1,13 @@
 """PyTorch / CUDA port of the anemoi_tpu hash library.
 
 It covers the scalar API over the golden model for all 14 instances, and
-batched Jive-k, Merkle roots, the permutation and the sponge over field
-elements and bytes (one-shot and streaming) for the 20-limb fields (BN-254,
-Ed-on-BLS12-377, Jubjub, Pallas, Vesta): plain PyTorch everywhere, and
-hand-written CUDA kernels (``csrc/jive.cu``, ``csrc/sponge.cu``) on an
-H100.  It imports neither JAX nor the ``anemoi_tpu`` package.
+batched Jive-k, Merkle trees (roots, levels, checkpoints, proofs), the
+permutation and the sponge over field elements and bytes (one-shot and
+streaming) for all seven fields: plain PyTorch everywhere, and hand-written
+CUDA kernels (``csrc/jive.cu``, ``csrc/sponge.cu``, at 8 words for the
+20-limb fields and 12 for BLS12-377 and BLS12-381) on an H100.
+``microbench.py`` measures the card's integer rate (``csrc/microbench.cu``).
+It imports neither JAX nor the ``anemoi_tpu`` package.
 
     import anemoi_tpu_torch as att
     d = att.vesta.anemoi_2_1.hash(b"hello world")             # scalar, golden model

@@ -2,7 +2,9 @@
 
 Each ``.cu`` file under ``csrc/`` becomes a shared library with a plain C
 interface, built by plain nvcc for ``sm_90a``: no PyTorch headers, so a
-build takes seconds.  The host library of the byte packer
+build takes seconds.  A source may be built more than once with different
+``-D`` defines (``jive.cu`` and ``sponge.cu`` once per word count), each
+build its own library.  The host library of the byte packer
 (``native/anemoi_host.cpp``, shared with the JAX package and never written
 to) is built by g++ the same way.  A library is named after a hash of its
 sources and flags, in ``build/anemoi_tpu_torch/`` beside the package, so a
@@ -84,15 +86,16 @@ def _compile(source: Path, deps: list[Path], compiler: str, flags: tuple) -> tup
     return lib_path, seconds
 
 
-def build(source: str) -> tuple[Path, float | None]:
-    """Compiles csrc/<source> (and every header it may include) if its
-    library is missing; returns the library's path and the build's seconds."""
+def build(source: str, defines: tuple[str, ...] = ()) -> tuple[Path, float | None]:
+    """Compiles csrc/<source> (and every header it may include) with the
+    given ``-D`` flags if its library is missing; returns the library's path
+    and the build's seconds."""
     deps = sorted(CSRC.glob("*.cuh")) + [CSRC / source]
-    return _compile(CSRC / source, deps, nvcc(), NVCC_FLAGS)
+    return _compile(CSRC / source, deps, nvcc(), NVCC_FLAGS + tuple(defines))
 
 
-def load(source: str) -> Library:
-    path, seconds = build(source)
+def load(source: str, defines: tuple[str, ...] = ()) -> Library:
+    path, seconds = build(source, defines)
     report = path.with_suffix(".ptxas.txt")
     lines = report.read_text().splitlines() if report.exists() else []
     return Library(ctypes.CDLL(str(path)), path, seconds, lines)

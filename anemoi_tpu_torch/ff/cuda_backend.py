@@ -16,7 +16,9 @@ Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
 ``limb_ops``) for a tensor on the CPU; it never falls back from one to the
 other.  Each counts its launches in ``<wrapper>.launches``.  The kernels
-cover the 20-limb fields; the 30-limb fields are not ported yet.
+cover every field: each source is built once per word count (8 for the
+20-limb fields, 12 for the 30-limb ones), and a wrapper launches the
+library of its field's ``kernel_words``.
 """
 
 from __future__ import annotations
@@ -33,8 +35,13 @@ from ..permutation.batched import permutation_fn
 from . import limb_ops as lo
 
 KERNEL_SHAPES = ((2, 2), (4, 2), (4, 4))  # (WIDTH, k) instantiated in jive.cu
-_MAX_ROUND_COLUMNS = 28  # rounds * columns of the largest 20-limb instance
-_CONSTS_WORDS = 8 + 1 + 6 * 8 + 2 + 2 * _MAX_ROUND_COLUMNS * 8
+KERNEL_WORDS = (8, 12)  # the word counts each source is built for
+_MAX_ROUND_COLUMNS = 28  # rounds * columns of the largest instance
+
+
+def consts_len(words: int) -> int:
+    """uint32 words of ``AnemoiConsts<words>`` (anemoi32.cuh): 507 or 759."""
+    return words + 1 + 6 * words + 2 + 2 * _MAX_ROUND_COLUMNS * words
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,10 +56,12 @@ def resolve_device(device=None) -> torch.device:
 
 @lru_cache(maxsize=None)
 def consts_words(inst: InstanceParams) -> np.ndarray:
-    """The kernels' constant struct (``AnemoiConsts`` in anemoi32.cuh) as uint32 words."""
+    """The kernels' constant struct (``AnemoiConsts<NW>`` in anemoi32.cuh,
+    NW = ``inst.field.kernel_words``) as uint32 words."""
     kc = kernel_consts(inst)
+    nw = inst.field.kernel_words
     rc = lambda t: np.concatenate(
-        [t.reshape(-1), np.zeros((_MAX_ROUND_COLUMNS - inst.rounds * inst.columns) * 8, np.uint32)]
+        [t.reshape(-1), np.zeros((_MAX_ROUND_COLUMNS - inst.rounds * inst.columns) * nw, np.uint32)]
     )
     return np.concatenate([
         kc.p, [kc.n0], kc.c_in, kc.c_out, kc.one, kc.beta, kc.delta, kc.inv_alpha,
@@ -74,8 +83,6 @@ def _check(inst: InstanceParams, x, rows: int) -> bool:
         return False
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if not inst.field.has_kernel_form:
-        raise NotImplementedError(f"{inst.field.name}: the kernels cover the 20-limb fields only")
     if not x.is_contiguous():
         raise ValueError("the input must be contiguous")
     return True
@@ -121,7 +128,7 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{inst.qualified_name} has no Jive-{k}")
     if not _check(inst, x, W * L):
         return jive_plain(inst, k, x)
-    lib = library().cdll
+    lib = library(inst.field.kernel_words).cdll
     out = torch.empty(((W // k) * L, x.shape[1]), dtype=torch.int32, device=x.device)
     if x.shape[1] == 0:
         return out
@@ -151,7 +158,7 @@ def permutation(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
     W, L = inst.width, inst.field.n_limbs
     if not _check(inst, x, W * L):
         return permutation_plain(inst, x)
-    lib = sponge_library().cdll
+    lib = sponge_library(inst.field.kernel_words).cdll
     out = torch.empty_like(x)
     if x.shape[1] == 0:
         return out
@@ -201,7 +208,7 @@ def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> torch.Te
         raise ValueError(f"the fused sponge takes E >= rate = {rate} elements, got {num_elements}")
     if not _check(inst, x, num_elements * L):
         return sponge_plain(inst, num_elements, x)
-    lib = sponge_library().cdll
+    lib = sponge_library(inst.field.kernel_words).cdll
     out = torch.empty((ds * L, x.shape[1]), dtype=torch.int32, device=x.device)
     if x.shape[1] == 0:
         return out
@@ -218,35 +225,50 @@ sponge.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _load(source: str, launchers: dict, consts_fn: str) -> _build.Library:
-    built = _build.load(source)
-    lib = built.cdll
+def declare(lib: ctypes.CDLL, launchers: dict) -> None:
+    """Declares the C launchers f(in, out, n, *args, device, stream) -> int
+    and anemoi_error_string."""
     for name, args in launchers.items():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, *args,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.anemoi_error_string.argtypes = [ctypes.c_int]
     lib.anemoi_error_string.restype = ctypes.c_char_p
-    words = getattr(lib, consts_fn)
-    words.argtypes = []
-    words.restype = ctypes.c_int
-    if words() != _CONSTS_WORDS:
-        raise RuntimeError(f"AnemoiConsts in {source} and consts_words() disagree on the layout")
+
+
+def _load(source: str, words: int, launchers: dict, consts_fn: str) -> _build.Library:
+    """csrc/<source> built for `words` (-DANEMOI_WORDS), its C interface
+    declared and its constants' layout checked against ``consts_words``."""
+    if words not in KERNEL_WORDS:
+        raise ValueError(f"the kernels are built for {KERNEL_WORDS} words, not {words}")
+    built = _build.load(source, defines=(f"-DANEMOI_WORDS={words}",))
+    lib = built.cdll
+    declare(lib, launchers)
+    layout = getattr(lib, consts_fn)
+    layout.argtypes = []
+    layout.restype = ctypes.c_int
+    if layout() != consts_len(words):
+        raise RuntimeError(f"AnemoiConsts<{words}> in {source} and consts_words() disagree on the layout")
     return built
 
 
 @lru_cache(maxsize=None)
-def library() -> _build.Library:
-    """jive.cu, built at first use, with its C interface declared."""
-    return _load("jive.cu", {"anemoi_jive": [ctypes.c_int, ctypes.c_int]}, "anemoi_jive_consts_words")
+def library(words: int) -> _build.Library:
+    """jive.cu for `words`-word fields, built at first use."""
+    return _load("jive.cu", words, {"anemoi_jive": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+                 "anemoi_jive_consts_words")
 
 
 @lru_cache(maxsize=None)
-def sponge_library() -> _build.Library:
-    """sponge.cu, built at first use, with its C interface declared."""
+def sponge_library(words: int) -> _build.Library:
+    """sponge.cu for `words`-word fields, built at first use."""
     return _load(
         "sponge.cu",
-        {"anemoi_permute": [ctypes.c_int], "anemoi_sponge": [ctypes.c_int, ctypes.c_int]},
+        words,
+        {
+            "anemoi_permute": [ctypes.c_int, ctypes.c_void_p],
+            "anemoi_sponge": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        },
         "anemoi_sponge_consts_words",
     )

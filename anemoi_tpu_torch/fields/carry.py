@@ -4,8 +4,8 @@
 the numpy arrays the JAX package derives (``round_constant_limbs`` and the
 limb constants of ``limb_ops.field_consts``), so the two derivations can be
 held against each other: ``derive_tables`` is the port's own, from its
-JSON copy.  Both give the plain path's limb tables and, for a 20-limb
-field, the CUDA kernel's word tables.
+JSON copy.  Both give the plain path's limb tables and the CUDA kernels'
+word tables (8 words for a 20-limb field, 12 for a 30-limb one).
 """
 
 from __future__ import annotations
@@ -24,20 +24,18 @@ class InstanceTables:
     limbs: FieldConsts  # plain path, R = 2^(13L)
     C: np.ndarray  # (rounds, columns, L) int32, R form
     D: np.ndarray
-    kernel: KernelConsts | None  # 20-limb fields only
+    kernel: KernelConsts
 
     def arrays(self) -> dict:
         out = {f"limbs.{k}": v for k, v in self.limbs.arrays().items()}
         out.update(C=self.C, D=self.D)
-        if self.kernel is not None:
-            out.update({f"kernel.{k}": v for k, v in self.kernel.arrays().items()})
+        out.update({f"kernel.{k}": v for k, v in self.kernel.arrays().items()})
         return out
 
 
 def derive_tables(inst: InstanceParams) -> InstanceTables:
     C, D = round_constant_limbs(inst)
-    kernel = kernel_consts(inst) if inst.field.has_kernel_form else None
-    return InstanceTables(field_consts(inst.field), C, D, kernel)
+    return InstanceTables(field_consts(inst.field), C, D, kernel_consts(inst))
 
 
 def from_reference_arrays(inst: InstanceParams, *, C, D, p, one_mont, r2, beta_mont, delta_mont) -> InstanceTables:
@@ -51,15 +49,13 @@ def from_reference_arrays(inst: InstanceParams, *, C, D, p, one_mont, r2, beta_m
     if C.shape != (inst.rounds, inst.columns, fp.n_limbs) or D.shape != C.shape:
         raise ValueError(f"round constants of shape {C.shape}, {D.shape} for {inst.qualified_name}")
     limbs = FieldConsts(fp, p=p, one_mont=one_mont, r2=r2, beta_mont=beta_mont, delta_mont=delta_mont)
-    kernel = None
-    if fp.has_kernel_form:
-        plain = lambda arr: fp.from_mont(int_from_limbs(arr))
-        kernel = kernel_consts_from_ints(
-            inst,
-            [plain(c) for c in C.reshape(-1, fp.n_limbs)],
-            [plain(d) for d in D.reshape(-1, fp.n_limbs)],
-            plain(beta_mont),
-            plain(delta_mont),
-            plain(one_mont),
-        )
+    plain = lambda arr: fp.from_mont(int_from_limbs(arr))
+    kernel = kernel_consts_from_ints(
+        inst,
+        [plain(c) for c in C.reshape(-1, fp.n_limbs)],
+        [plain(d) for d in D.reshape(-1, fp.n_limbs)],
+        plain(beta_mont),
+        plain(delta_mont),
+        plain(one_mont),
+    )
     return InstanceTables(limbs, C, D, kernel)

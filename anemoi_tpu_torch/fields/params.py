@@ -4,9 +4,10 @@ Counterpart of ``anemoi_tpu/fields/params.py``: the same frozen dataclasses,
 read from this package's own copy of ``data/params.json``, with the same
 13-bit limb form (``R = 2^(13L)``) at every public boundary.
 
-On top of that it derives what the CUDA kernels need for a 20-limb
-field: 32-bit words, Montgomery form with ``R' = 2^256``, and the two
-boundary constants that move a value between the two Montgomery forms.
+On top of that it derives what the CUDA kernels need for every field:
+32-bit words (8 for the 20-limb fields, 12 for the 30-limb ones),
+Montgomery form with ``R' = 2^(32 * words)``, and the two boundary
+constants that move a value between the two Montgomery forms.
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ LIMB_BITS = 13
 LIMB_MASK = (1 << LIMB_BITS) - 1
 
 WORD_BITS = 32
-KERNEL_WORDS = 8  # 32-bit words of a 20-limb field inside the CUDA kernel
-KERNEL_R_BITS = WORD_BITS * KERNEL_WORDS  # R' = 2^256
 
 _DATA = Path(__file__).parent / "data"
 
@@ -46,7 +45,7 @@ def int_from_limbs(limbs) -> int:
     return x
 
 
-def words_from_int(x: int, n_words: int = KERNEL_WORDS) -> np.ndarray:
+def words_from_int(x: int, n_words: int) -> np.ndarray:
     """Little-endian 32-bit words as uint32[n_words]."""
     out = np.zeros(n_words, dtype=np.uint32)
     for i in range(n_words):
@@ -94,14 +93,21 @@ class FieldParams:
     def from_mont(self, x: int) -> int:
         return x * pow(self.R, -1, self.p) % self.p
 
-    # --- the CUDA kernel's 32-bit form (20-limb fields only) --------------
+    # --- the CUDA kernels' 32-bit form -------------------------------------
     @property
-    def has_kernel_form(self) -> bool:
-        return self.n_limbs == 20
+    def kernel_words(self) -> int:
+        """32-bit words of an element inside the kernels: 8 for the 20-limb
+        fields (p below 2^256), 12 for the 30-limb ones (p below 2^384)."""
+        return -(-self.bits // WORD_BITS)
+
+    @property
+    def kernel_r_bits(self) -> int:
+        """R' = 2^kernel_r_bits: 2^256 or 2^384."""
+        return WORD_BITS * self.kernel_words
 
     def kernel_mont(self, x: int) -> int:
-        """x in Montgomery form with R' = 2^256."""
-        return (x % self.p) * pow(2, KERNEL_R_BITS, self.p) % self.p
+        """x in Montgomery form with R'."""
+        return (x % self.p) * pow(2, self.kernel_r_bits, self.p) % self.p
 
     @property
     def kernel_n0(self) -> int:
@@ -111,16 +117,18 @@ class FieldParams:
     @property
     def kernel_r2(self) -> int:
         """R'^2 mod p."""
-        return pow(2, 2 * KERNEL_R_BITS, self.p)
+        return pow(2, 2 * self.kernel_r_bits, self.p)
 
     @property
     def c_in(self) -> int:
-        """2^252 mod p: a Montgomery product by it turns a*2^260 into a*2^256."""
-        return pow(2, 2 * KERNEL_R_BITS - LIMB_BITS * self.n_limbs, self.p)
+        """2^(2*32*words - 13L) mod p (2^252 or 2^378): a Montgomery product
+        by it turns a*R into a*R'."""
+        return pow(2, 2 * self.kernel_r_bits - LIMB_BITS * self.n_limbs, self.p)
 
     @property
     def c_out(self) -> int:
-        """2^260 mod p: a Montgomery product by it turns b*2^256 into b*2^260."""
+        """R = 2^(13L) mod p (2^260 or 2^390): a Montgomery product by it
+        turns b*R' into b*R."""
         return pow(2, LIMB_BITS * self.n_limbs, self.p)
 
 
@@ -208,23 +216,24 @@ def all_instances() -> list[InstanceParams]:
 
 @dataclass(frozen=True, eq=False)
 class KernelConsts:
-    """The 32-bit-word constants of one 20-limb instance for the CUDA kernel.
+    """The 32-bit-word constants of one instance for the CUDA kernels.
 
-    Every array is little-endian uint32 words; field values are canonical
-    and, where marked, in Montgomery form with R' = 2^256.
+    Every array is little-endian uint32 words, NW = ``field.kernel_words``
+    of them per value; field values are canonical and, where marked, in
+    Montgomery form with R' = 2^(32 NW).
     """
 
-    p: np.ndarray  # [8]
+    p: np.ndarray  # [NW]
     n0: int  # -p^-1 mod 2^32
-    r2: np.ndarray  # [8] R'^2 mod p
-    c_in: np.ndarray  # [8] 2^252 mod p
-    c_out: np.ndarray  # [8] 2^260 mod p
-    one: np.ndarray  # [8] R' form: 2^256 mod p (the sponge's sigma)
-    beta: np.ndarray  # [8] R' form
-    delta: np.ndarray  # [8] R' form
-    C: np.ndarray  # [rounds, columns, 8] R' form
-    D: np.ndarray  # [rounds, columns, 8] R' form
-    inv_alpha: np.ndarray  # [8] plain exponent words
+    r2: np.ndarray  # [NW] R'^2 mod p
+    c_in: np.ndarray  # [NW] field.c_in
+    c_out: np.ndarray  # [NW] field.c_out
+    one: np.ndarray  # [NW] R' form: R' mod p (the sponge's sigma)
+    beta: np.ndarray  # [NW] R' form
+    delta: np.ndarray  # [NW] R' form
+    C: np.ndarray  # [rounds, columns, NW] R' form
+    D: np.ndarray  # [rounds, columns, NW] R' form
+    inv_alpha: np.ndarray  # [NW] plain exponent words
     inv_alpha_bits: int  # bit length of the exponent
 
     def arrays(self) -> dict:
@@ -235,23 +244,21 @@ def kernel_consts_from_ints(inst: InstanceParams, C, D, beta: int, delta: int, o
     """Kernel constants from plain-integer round constants, S-box constants
     and the field's one."""
     fp = inst.field
-    if not fp.has_kernel_form:
-        raise ValueError(f"{fp.name} has {fp.n_limbs} limbs; the kernel takes 20")
-    rc = lambda t: np.stack([words_from_int(fp.kernel_mont(v)) for v in t]).reshape(
-        inst.rounds, inst.columns, KERNEL_WORDS
-    )
+    nw = fp.kernel_words
+    words = lambda v: words_from_int(v, nw)
+    rc = lambda t: np.stack([words(fp.kernel_mont(v)) for v in t]).reshape(inst.rounds, inst.columns, nw)
     return KernelConsts(
-        p=words_from_int(fp.p),
+        p=words(fp.p),
         n0=fp.kernel_n0,
-        r2=words_from_int(fp.kernel_r2),
-        c_in=words_from_int(fp.c_in),
-        c_out=words_from_int(fp.c_out),
-        one=words_from_int(fp.kernel_mont(one)),
-        beta=words_from_int(fp.kernel_mont(beta)),
-        delta=words_from_int(fp.kernel_mont(delta)),
+        r2=words(fp.kernel_r2),
+        c_in=words(fp.c_in),
+        c_out=words(fp.c_out),
+        one=words(fp.kernel_mont(one)),
+        beta=words(fp.kernel_mont(beta)),
+        delta=words(fp.kernel_mont(delta)),
         C=rc(C),
         D=rc(D),
-        inv_alpha=words_from_int(fp.inv_alpha),
+        inv_alpha=words(fp.inv_alpha),
         inv_alpha_bits=fp.inv_alpha.bit_length(),
     )
 
@@ -283,4 +290,5 @@ FIELD_NAMES = (
     "vesta",
 )
 INSTANCE_NAMES = ("anemoi_2_1", "anemoi_4_3")
-KERNEL_FIELDS = tuple(f for f in FIELD_NAMES if f not in ("bls12_377", "bls12_381"))
+FIELDS_30 = ("bls12_377", "bls12_381")  # 30 limbs, 12 kernel words
+FIELDS_20 = tuple(f for f in FIELD_NAMES if f not in FIELDS_30)  # 20 limbs, 8 kernel words

@@ -14,9 +14,7 @@ Scalar calls are served by the port's golden model (``ff/golden.py``).
 The ``.batch`` namespace runs on limb tensors (see ``modes/batched.py``):
 a function that takes a tensor runs where the tensor lies, through a CUDA
 kernel on the card or the plain version on the CPU; one that makes
-tensors takes ``device=None``, which means the card.  The 30-limb fields
-have no kernels yet: their ``.batch`` raises ``NotImplementedError`` on
-the card.
+tensors takes ``device=None``, which means the card.
 """
 
 from __future__ import annotations

@@ -107,19 +107,29 @@ class _FakeCudaTensor(torch.Tensor):
 
 @pytest.mark.parametrize("field", ["bls12_377", "bls12_381"])
 def test_batch_raises_for_30_limb_fields_on_card(monkeypatch, field):
-    """The 30-limb fields have no kernels yet: .batch on the card raises
-    instead of degrading to the plain path."""
+    """.batch on the card takes the 30-limb fields to the 12-word kernel
+    libraries and never to the plain path; with no library to load, as
+    here, the call raises instead of degrading."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for name in ("jive_plain", "permutation_plain", "sponge_plain"):
         monkeypatch.setattr(cuda_backend, name, lambda *a: pytest.fail("plain path taken"))
+    asked = []
+
+    def no_library(words):
+        asked.append(words)
+        raise RuntimeError("no kernel library here")
+
+    monkeypatch.setattr(cuda_backend, "library", no_library)
+    monkeypatch.setattr(cuda_backend, "sponge_library", no_library)
     b = getattr(att, field).anemoi_4_3.batch
     states = torch.zeros(4, 30, 2, dtype=torch.int32).as_subclass(_FakeCudaTensor)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no kernel library"):
         b.permutation(states)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no kernel library"):
         b.compress(states)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no kernel library"):
         b.hash_field(states)
+    assert asked == [12, 12, 12]
 
 
 def test_import_leaves_out_jax():

@@ -1,14 +1,14 @@
-"""The CUDA kernel's arithmetic, built for the host with g++: the 8-word
-field operations of csrc/field32.cuh against Python ints, and the
-per-state Jive of csrc/jive.cu against the SAGE vectors and the plain path,
-for the five 20-limb fields.
+"""The CUDA kernels' arithmetic, built for the host with g++: the field
+operations of csrc/field32.cuh at 8 and 12 words against Python ints, and
+the per-state Jive of csrc/jive.cu against the SAGE vectors and the plain
+path, for all seven fields.
 
 Both sources are __host__ __device__ outside the kernel itself, so this
-checks the very code the kernel is compiled from, without a card:
+checks the very code the kernels are compiled from, without a card:
 Montgomery product and square, add, sub, the conversions between the
-13-bit-limb form (R = 2^260) and the kernel's word form (R' = 2^256), and
-the rounds, ladder and feed-forward sum with the constants as
-``cuda_backend.consts_words`` lays them out.
+13-bit-limb form (R = 2^260 or 2^390) and the kernel's word form (R' =
+2^256 or 2^384), and the rounds, ladder and feed-forward sum with the
+constants as ``cuda_backend.consts_words`` lays them out.
 """
 
 import ctypes
@@ -23,8 +23,10 @@ from anemoi_tpu_torch._build import CSRC
 from anemoi_tpu_torch.ff import cuda_backend
 from anemoi_tpu_torch.ff.limb_ops import random_canonical
 from anemoi_tpu_torch.fields.params import (
+    FIELD_NAMES,
+    FIELDS_20,
+    FIELDS_30,
     INSTANCE_NAMES,
-    KERNEL_FIELDS,
     get_field,
     get_instance,
     int_from_limbs,
@@ -35,43 +37,72 @@ from anemoi_tpu_torch.modes.batched import decode_states, encode_states
 
 from .vector_loader import load_vectors
 
-R_WORDS = 1 << 256
-
 _SHIM = r"""
 #include <stddef.h>
 #include "jive.cu"
-#define W F32_WORDS
-extern "C" {
-void t_mul(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p, uint32_t n0) {
-    for (int i = 0; i < n; ++i) f32_mont_mul(r + W * i, a + W * i, b + W * i, p, n0);
+// each function takes the word count of its field (8 or 12) and runs the
+// template of that count over n values
+#define BY_WORDS(f, ...) (words == 8 ? f<8>(__VA_ARGS__) : f<12>(__VA_ARGS__))
+template <int W> void mul_n(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p, uint32_t n0) {
+    for (int i = 0; i < n; ++i) f32_mont_mul<W>(r + W * i, a + W * i, b + W * i, p, n0);
 }
-void t_sqr(uint32_t* r, const uint32_t* a, int n, const uint32_t* p, uint32_t n0) {
-    for (int i = 0; i < n; ++i) f32_mont_sqr(r + W * i, a + W * i, p, n0);
+template <int W> void sqr_n(uint32_t* r, const uint32_t* a, int n, const uint32_t* p, uint32_t n0) {
+    for (int i = 0; i < n; ++i) f32_mont_sqr<W>(r + W * i, a + W * i, p, n0);
 }
-void t_add(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p) {
-    for (int i = 0; i < n; ++i) f32_add(r + W * i, a + W * i, b + W * i, p);
+template <int W> void add_n(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p) {
+    for (int i = 0; i < n; ++i) f32_add<W>(r + W * i, a + W * i, b + W * i, p);
 }
-void t_sub(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p) {
-    for (int i = 0; i < n; ++i) f32_sub(r + W * i, a + W * i, b + W * i, p);
+template <int W> void sub_n(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p) {
+    for (int i = 0; i < n; ++i) f32_sub<W>(r + W * i, a + W * i, b + W * i, p);
 }
-// limbs: int32 [20, n] limb-major, as the kernel reads and writes them
-void t_from_limbs(uint32_t* r, const int32_t* limbs, int n, const uint32_t* c_in, const uint32_t* p, uint32_t n0) {
-    for (int i = 0; i < n; ++i) f32_from_limbs(r + W * i, limbs + i, (size_t)n, c_in, p, n0);
+template <int W> void from_limbs_n(uint32_t* r, const int32_t* limbs, int n, const uint32_t* c_in, const uint32_t* p,
+                                   uint32_t n0) {
+    for (int i = 0; i < n; ++i) f32_from_limbs<W>(r + W * i, limbs + i, (size_t)n, c_in, p, n0);
 }
-void t_to_limbs(int32_t* limbs, const uint32_t* a, int n, const uint32_t* c_out, const uint32_t* p, uint32_t n0) {
-    for (int i = 0; i < n; ++i) f32_to_limbs(limbs + i, (size_t)n, a + W * i, c_out, p, n0);
+template <int W> void to_limbs_n(int32_t* limbs, const uint32_t* a, int n, const uint32_t* c_out, const uint32_t* p,
+                                 uint32_t n0) {
+    for (int i = 0; i < n; ++i) f32_to_limbs<W>(limbs + i, (size_t)n, a + W * i, c_out, p, n0);
 }
-// the kernel's per-thread work, lane by lane: [width*20, n] -> [(width/k)*20, n]
-void t_jive(int32_t* out, const int32_t* in, int n, int width, int k, const uint32_t* consts) {
-    const AnemoiConsts& c = *(const AnemoiConsts*)consts;
+template <int NW> void jive_n(int32_t* out, const int32_t* in, int n, int width, int k, const uint32_t* consts) {
+    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
     for (int i = 0; i < n; ++i) {
-        if (width == 2) jive_lane<2, 2>(out + i, in + i, (size_t)n, c);
-        else if (k == 2) jive_lane<4, 2>(out + i, in + i, (size_t)n, c);
-        else jive_lane<4, 4>(out + i, in + i, (size_t)n, c);
+        if (width == 2) jive_lane<2, 2, NW>(out + i, in + i, (size_t)n, c);
+        else if (k == 2) jive_lane<4, 2, NW>(out + i, in + i, (size_t)n, c);
+        else jive_lane<4, 4, NW>(out + i, in + i, (size_t)n, c);
     }
 }
-int t_consts_words(void) { return (int)(sizeof(AnemoiConsts) / 4); }
-int t_one_offset(void) { return (int)(offsetof(AnemoiConsts, one) / 4); }
+extern "C" {
+void t_mul(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, int words, const uint32_t* p, uint32_t n0) {
+    BY_WORDS(mul_n, r, a, b, n, p, n0);
+}
+void t_sqr(uint32_t* r, const uint32_t* a, int n, int words, const uint32_t* p, uint32_t n0) {
+    BY_WORDS(sqr_n, r, a, n, p, n0);
+}
+void t_add(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, int words, const uint32_t* p) {
+    BY_WORDS(add_n, r, a, b, n, p);
+}
+void t_sub(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, int words, const uint32_t* p) {
+    BY_WORDS(sub_n, r, a, b, n, p);
+}
+// limbs: int32 [L, n] limb-major, as the kernels read and write them
+void t_from_limbs(uint32_t* r, const int32_t* limbs, int n, int words, const uint32_t* c_in, const uint32_t* p,
+                  uint32_t n0) {
+    BY_WORDS(from_limbs_n, r, limbs, n, c_in, p, n0);
+}
+void t_to_limbs(int32_t* limbs, const uint32_t* a, int n, int words, const uint32_t* c_out, const uint32_t* p,
+                uint32_t n0) {
+    BY_WORDS(to_limbs_n, limbs, a, n, c_out, p, n0);
+}
+// the kernel's per-thread work, lane by lane: [width*L, n] -> [(width/k)*L, n]
+void t_jive(int32_t* out, const int32_t* in, int n, int width, int k, int words, const uint32_t* consts) {
+    BY_WORDS(jive_n, out, in, n, width, k, consts);
+}
+int t_consts_words(int words) {
+    return words == 8 ? (int)(sizeof(AnemoiConsts<8>) / 4) : (int)(sizeof(AnemoiConsts<12>) / 4);
+}
+int t_one_offset(int words) {
+    return words == 8 ? (int)(offsetof(AnemoiConsts<8>, one) / 4) : (int)(offsetof(AnemoiConsts<12>, one) / 4);
+}
 }
 """
 
@@ -95,8 +126,8 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _words(vals):
-    return np.stack([words_from_int(v) for v in vals]).astype(np.uint32)
+def _words(vals, nw):
+    return np.stack([words_from_int(v, nw) for v in vals]).astype(np.uint32)
 
 
 def _ints(words):
@@ -111,58 +142,64 @@ def _values(p, n, seed, *, below=None):
     return [v % below for v in (0, 1, p - 1, p // 2, p - 2, 2)] + rand
 
 
-# The five fields' p are below 2^255, so their sums never carry out of the
-# eighth word; 2^256 - 189, the largest 256-bit prime, makes them carry.
-PRIMES = [get_field(f).p for f in KERNEL_FIELDS] + [2**256 - 189]
+# The five 20-limb fields' p are below 2^255, so their sums never carry out
+# of the eighth word; 2^256 - 189, the largest 256-bit prime, makes them
+# carry.  BLS12-377 and BLS12-381 leave three bits spare in 12 words;
+# 2^384 - 317, the largest 384-bit prime, leaves none.
+PRIMES = [get_field(f).p for f in FIELDS_20] + [2**256 - 189] + [get_field(f).p for f in FIELDS_30] + [2**384 - 317]
 
 
-@pytest.mark.parametrize("prime", PRIMES, ids=list(KERNEL_FIELDS) + ["p256"])
+@pytest.mark.parametrize("prime", PRIMES, ids=list(FIELDS_20) + ["p256"] + list(FIELDS_30) + ["p384"])
 def test_word_arithmetic(lib, prime):
-    p, n0 = _words([prime])[0], ctypes.c_uint32(-pow(prime, -1, 2**32) % 2**32)
+    nw = 8 if prime < 1 << 256 else 12
+    r_words = 1 << (32 * nw)
+    p, n0 = _words([prime], nw)[0], ctypes.c_uint32(-pow(prime, -1, 2**32) % 2**32)
     a_vals, b_vals = _values(prime, 250, 1), _values(prime, 250, 2)[::-1]
-    a, b = _words(a_vals), _words(b_vals)
+    a, b = _words(a_vals, nw), _words(b_vals, nw)
     n = len(a_vals)
     r = np.zeros_like(a)
-    rinv = pow(R_WORDS, -1, prime)
+    rinv = pow(r_words, -1, prime)
 
-    lib.t_mul(_ptr(r), _ptr(a), _ptr(b), n, _ptr(p), n0)
+    lib.t_mul(_ptr(r), _ptr(a), _ptr(b), n, nw, _ptr(p), n0)
     assert _ints(r) == [x * y * rinv % prime for x, y in zip(a_vals, b_vals)]
-    lib.t_sqr(_ptr(r), _ptr(a), n, _ptr(p), n0)
+    lib.t_sqr(_ptr(r), _ptr(a), n, nw, _ptr(p), n0)
     assert _ints(r) == [x * x * rinv % prime for x in a_vals]
-    lib.t_add(_ptr(r), _ptr(a), _ptr(b), n, _ptr(p))
+    lib.t_add(_ptr(r), _ptr(a), _ptr(b), n, nw, _ptr(p))
     assert _ints(r) == [(x + y) % prime for x, y in zip(a_vals, b_vals)]
-    lib.t_sub(_ptr(r), _ptr(a), _ptr(b), n, _ptr(p))
+    lib.t_sub(_ptr(r), _ptr(a), _ptr(b), n, nw, _ptr(p))
     assert _ints(r) == [(x - y) % prime for x, y in zip(a_vals, b_vals)]
 
-    # the product's first operand may be any value below 2^256 (the entry
+    # the product's first operand may be any value below R' (the entry
     # conversion feeds it raw words); the second stays below p
-    big = _values(prime, 100, 3, below=R_WORDS) + [R_WORDS - 1, R_WORDS - prime] + [R_WORDS - 1] * 4
+    big = _values(prime, 100, 3, below=r_words) + [r_words - 1, r_words - prime] + [r_words - 1] * 4
     small = b_vals[: len(big) - 4] + [prime - 1, prime - 2, prime - 2**32, prime // 2]
-    r = np.zeros((len(big), 8), np.uint32)
-    lib.t_mul(_ptr(r), _ptr(_words(big)), _ptr(_words(small)), len(big), _ptr(p), n0)
+    r = np.zeros((len(big), nw), np.uint32)
+    lib.t_mul(_ptr(r), _ptr(_words(big, nw)), _ptr(_words(small, nw)), len(big), nw, _ptr(p), n0)
     assert _ints(r) == [x * y * rinv % prime for x, y in zip(big, small)]
 
 
-@pytest.mark.parametrize("field", KERNEL_FIELDS)
+@pytest.mark.parametrize("field", FIELD_NAMES)
 def test_limb_boundary(lib, field):
     fp = get_field(field)
-    p, n0 = _words([fp.p])[0], ctypes.c_uint32(fp.kernel_n0)
-    c_in, c_out = _words([fp.c_in])[0], _words([fp.c_out])[0]
-    L = fp.n_limbs
-    # canonical rows, rows from p up to 2^256, which the entry reduces, and
-    # rows up to 2^260, whose bits from 2^256 up the entry drops
-    vals = (_values(fp.p, 200, 4) + _values(fp.p, 50, 5, below=R_WORDS)
-            + _values(fp.p, 50, 6, below=1 << (13 * L)) + [R_WORDS - 1, (1 << (13 * L)) - 1, R_WORDS])
+    nw, L = fp.kernel_words, fp.n_limbs
+    r_words = 1 << (32 * nw)
+    p, n0 = _words([fp.p], nw)[0], ctypes.c_uint32(fp.kernel_n0)
+    c_in, c_out = _words([fp.c_in], nw)[0], _words([fp.c_out], nw)[0]
+    # canonical rows, rows from p up to R', which the entry reduces, and
+    # rows up to R = 2^(13L), whose bits from R' up the entry drops
+    vals = (_values(fp.p, 200, 4) + _values(fp.p, 50, 5, below=r_words)
+            + _values(fp.p, 50, 6, below=1 << (13 * L)) + [r_words - 1, (1 << (13 * L)) - 1, r_words])
     limbs = np.stack([limbs_from_int(v, L) for v in vals], axis=1)
     n = len(vals)
-    words = np.zeros((n, 8), np.uint32)
-    lib.t_from_limbs(_ptr(words), _ptr(limbs), n, _ptr(c_in), _ptr(p), n0)
-    # in R' form, a value x in R form is x * 2^256 / 2^260 = x / 16 mod p
-    assert _ints(words) == [v % R_WORDS * pow(16, -1, fp.p) % fp.p for v in vals]
+    words = np.zeros((n, nw), np.uint32)
+    lib.t_from_limbs(_ptr(words), _ptr(limbs), n, nw, _ptr(c_in), _ptr(p), n0)
+    # in R' form, a value x in R form is x * R' / R mod p
+    shift = pow(2, 13 * L - 32 * nw, fp.p)
+    assert _ints(words) == [v % r_words * pow(shift, -1, fp.p) % fp.p for v in vals]
 
     back = np.zeros_like(limbs)
-    lib.t_to_limbs(_ptr(back), _ptr(words), n, _ptr(c_out), _ptr(p), n0)
-    assert [int_from_limbs(back[:, i]) for i in range(n)] == [v % R_WORDS % fp.p for v in vals]
+    lib.t_to_limbs(_ptr(back), _ptr(words), n, nw, _ptr(c_out), _ptr(p), n0)
+    assert [int_from_limbs(back[:, i]) for i in range(n)] == [v % r_words % fp.p for v in vals]
     assert back.min() >= 0 and back.max() < (1 << 13)
 
 
@@ -171,20 +208,25 @@ def _host_jive(lib, inst, k, x):
     x = np.ascontiguousarray(x, dtype=np.int32)
     out = np.zeros(((inst.width // k) * inst.field.n_limbs, x.shape[1]), np.int32)
     words = cuda_backend.consts_words(inst)
-    lib.t_jive(_ptr(out), _ptr(x), x.shape[1], inst.width, k, _ptr(words))
+    lib.t_jive(_ptr(out), _ptr(x), x.shape[1], inst.width, k, inst.field.kernel_words, _ptr(words))
     return out
 
 
 def test_consts_layout(lib):
-    assert lib.t_consts_words() == len(cuda_backend.consts_words(get_instance("vesta", "anemoi_4_3")))
-    # the sponge's sigma: 1 in R' form, where the struct keeps it
-    off = lib.t_one_offset()
-    for field in KERNEL_FIELDS:
+    """Both word counts: the struct's size, and the sponge's sigma (1 in R'
+    form) where the struct keeps it."""
+    for nw, field in ((8, "vesta"), (12, "bls12_381")):
+        assert lib.t_consts_words(nw) == len(cuda_backend.consts_words(get_instance(field, "anemoi_4_3")))
+        assert lib.t_consts_words(nw) == cuda_backend.consts_len(nw)
+    for field in FIELD_NAMES:
+        fp = get_field(field)
+        nw = fp.kernel_words
+        off = lib.t_one_offset(nw)
         words = cuda_backend.consts_words(get_instance(field, "anemoi_2_1"))
-        assert _ints([words[off:off + 8]]) == [R_WORDS % get_field(field).p]
+        assert _ints([words[off:off + nw]]) == [(1 << (32 * nw)) % fp.p]
 
 
-@pytest.mark.parametrize("field", KERNEL_FIELDS)
+@pytest.mark.parametrize("field", FIELD_NAMES)
 @pytest.mark.parametrize("iname", INSTANCE_NAMES)
 def test_host_jive_vectors(lib, field, iname):
     inst = get_instance(field, iname)

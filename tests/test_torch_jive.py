@@ -40,6 +40,25 @@ def test_plain_jive_matches_jax(iname):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_plain_jive_matches_jax_bls12_381():
+    """A 30-limb field: the SAGE jive vector's input through JAX
+    ``instance("bls12_381", "anemoi_2_1").batch.compress_k(arr, 2)`` (the
+    call and shape tests/test_jnp_backend.py compiles) and through the
+    port's plain path."""
+    import anemoi_tpu as at
+    from anemoi_tpu.modes import batched as jbm
+
+    from .vector_loader import load_vectors
+
+    pair = load_vectors("bls12_381", "anemoi_2_1")["jive"][0]
+    ref = at.instance("bls12_381", "anemoi_2_1")
+    want = np.asarray(ref.batch.compress_k(jbm.encode_states(ref.params, pair["input"]), 2))
+    inst = get_instance("bls12_381", "anemoi_2_1")
+    got = jive_compress_batch_fn(inst, 2, device="cpu")(encode_states(inst, pair["input"], device="cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert decode_states(inst, got) == pair["output"]
+
+
 def test_plain_jive_4_to_1_matches_golden():
     inst = get_instance("vesta", "anemoi_4_3")
     ref = jparams.get_instance("vesta", "anemoi_4_3")
@@ -86,7 +105,8 @@ def test_cuda_tensor_goes_to_the_kernel_or_raises(monkeypatch):
     x = torch.zeros(40, 2, dtype=torch.int32).as_subclass(FakeCudaTensor)
     monkeypatch.setattr(cuda_backend, "jive_plain", lambda *a: pytest.fail("plain path taken"))
 
-    def no_library():
+    def no_library(words):
+        assert words == 8
         raise RuntimeError("no kernel library here")
 
     monkeypatch.setattr(cuda_backend, "library", no_library)
@@ -101,8 +121,9 @@ def test_kernel_matches_plain_on_card():
     from anemoi_tpu_torch.ff.limb_ops import random_canonical
 
     rng = np.random.default_rng(12)
-    for iname, k in [("anemoi_2_1", 2), ("anemoi_4_3", 2), ("anemoi_4_3", 4)]:
-        inst = get_instance("vesta", iname)
+    shapes = [("anemoi_2_1", 2), ("anemoi_4_3", 2), ("anemoi_4_3", 4)]
+    for field, (iname, k) in [(f, s) for f in ("vesta", "bls12_381") for s in shapes]:
+        inst = get_instance(field, iname)
         W, L = inst.width, inst.field.n_limbs
         x = torch.from_numpy(random_canonical(inst.field, (W, 131), rng).transpose(1, 0, 2).copy())
         x = x.reshape(W * L, 131).cuda()

@@ -53,29 +53,36 @@ def test_carried_tables_equal_own_derivation(field, iname):
     own = derive_tables(inst).arrays()
     got = carried.arrays()
     assert got.keys() == own.keys()
-    assert ("kernel.p" in own) == (inst.field.n_limbs == 20)
+    assert "kernel.p" in own  # every field has the kernels' word tables
     for key in own:
         np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(own[key]), err_msg=key)
 
 
-@pytest.mark.parametrize("field", params.KERNEL_FIELDS)
+@pytest.mark.parametrize("field", params.FIELD_NAMES)
 def test_kernel_word_constants(field):
+    """8 words and R' = 2^256 for the 20-limb fields (R = 2^260), 12 words
+    and R' = 2^384 for the 30-limb ones (R = 2^390)."""
     fp = params.get_field(field)
-    kc = params.kernel_consts(params.get_instance(field, "anemoi_2_1"))
+    nw, rb = (8, 256) if fp.n_limbs == 20 else (12, 384)
+    assert (fp.kernel_words, fp.kernel_r_bits) == (nw, rb)
+    inst = params.get_instance(field, "anemoi_2_1")
+    kc = params.kernel_consts(inst)
+    assert kc.p.shape == (nw,) and kc.C.shape == (inst.rounds, 1, nw)
     words = lambda a: sum(int(w) << (32 * i) for i, w in enumerate(np.asarray(a)))
     p = words(kc.p)
     assert p == fp.p and kc.p.dtype == np.uint32
     assert p * kc.n0 % 2**32 == 2**32 - 1  # p * (-p^-1) = -1 mod 2^32
-    assert words(kc.r2) == pow(2, 512, fp.p)
-    assert words(kc.c_in) == pow(2, 252, fp.p)
-    assert words(kc.c_out) == pow(2, 260, fp.p)
-    # a Montgomery product by c_in / c_out moves between R = 2^260 and R' = 2^256
+    assert words(kc.r2) == pow(2, 2 * rb, fp.p)
+    rl = 13 * fp.n_limbs
+    assert words(kc.c_in) == pow(2, 2 * rb - rl, fp.p)
+    assert words(kc.c_out) == pow(2, rl, fp.p)
+    # a Montgomery product by c_in / c_out moves between R = 2^(13L) and R'
     a = 12345678901234567890123456789 % fp.p
-    rinv = pow(2, -256, fp.p)
-    assert (a << 260) % fp.p * words(kc.c_in) * rinv % fp.p == (a << 256) % fp.p
-    assert (a << 256) % fp.p * words(kc.c_out) * rinv % fp.p == (a << 260) % fp.p
-    assert words(kc.beta) == (fp.beta << 256) % fp.p
-    assert words(kc.delta) == (fp.delta << 256) % fp.p
+    rinv = pow(2, -rb, fp.p)
+    assert (a << rl) % fp.p * words(kc.c_in) * rinv % fp.p == (a << rb) % fp.p
+    assert (a << rb) % fp.p * words(kc.c_out) * rinv % fp.p == (a << rl) % fp.p
+    assert words(kc.beta) == (fp.beta << rb) % fp.p
+    assert words(kc.delta) == (fp.delta << rb) % fp.p
     assert words(kc.inv_alpha) == fp.inv_alpha and kc.inv_alpha_bits == fp.inv_alpha.bit_length()
 
 

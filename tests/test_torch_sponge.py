@@ -171,12 +171,15 @@ class _FakeCudaTensor(torch.Tensor):
 
 
 def test_cuda_tensors_go_to_the_kernels_or_raise(monkeypatch):
-    """The wrappers never fall back to the plain path for a CUDA tensor, and
-    the 30-limb fields, which have no kernels yet, raise."""
+    """The wrappers never fall back to the plain path for a CUDA tensor:
+    with no library to load, as here, they raise.  A 30-limb field asks for
+    the 12-word library, a 20-limb one for the 8-word library."""
     monkeypatch.setattr(cuda_backend, "permutation_plain", lambda *a: pytest.fail("plain path taken"))
     monkeypatch.setattr(cuda_backend, "sponge_plain", lambda *a: pytest.fail("plain path taken"))
+    asked = []
 
-    def no_library():
+    def no_library(words):
+        asked.append(words)
         raise RuntimeError("no kernel library here")
 
     monkeypatch.setattr(cuda_backend, "sponge_library", no_library)
@@ -187,10 +190,11 @@ def test_cuda_tensors_go_to_the_kernels_or_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel library"):
         cuda_backend.sponge(inst, 4, fake(80))
     wide = get_instance("bls12_381", "anemoi_4_3")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no kernel library"):
         cuda_backend.permutation(wide, fake(120))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no kernel library"):
         cuda_backend.sponge(wide, 3, fake(90))
+    assert asked == [8, 8, 12, 12]
 
 
 @pytest.mark.cuda
@@ -200,10 +204,12 @@ def test_kernels_match_plain_on_card():
     from anemoi_tpu_torch.ff.limb_ops import random_canonical
 
     rng = np.random.default_rng(44)
-    for iname, E in [("anemoi_2_1", 2), ("anemoi_4_3", 3), ("anemoi_4_3", 4)]:
-        inst = get_instance("vesta", iname)
+    cases = [("anemoi_2_1", 2), ("anemoi_4_3", 3), ("anemoi_4_3", 4)]
+    for field, (iname, E) in [(f, c) for f in ("vesta", "bls12_377") for c in cases]:
+        inst = get_instance(field, iname)
         W, L = inst.width, inst.field.n_limbs
-        x = torch.from_numpy(random_canonical(inst.field, (W, 131), rng).reshape(W * L, 131)).cuda()
+        x = torch.from_numpy(random_canonical(inst.field, (W, 131), rng).transpose(1, 0, 2).copy())
+        x = x.reshape(W * L, 131).cuda()
         np.testing.assert_array_equal(cuda_backend.permutation(inst, x).cpu().numpy(),
                                       cuda_backend.permutation_plain(inst, x).cpu().numpy())
         m = torch.from_numpy(random_canonical(inst.field, (E, 131), rng).transpose(1, 0, 2).copy())

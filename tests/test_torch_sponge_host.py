@@ -1,7 +1,8 @@
 """The permutation and sponge kernels' own per-lane code, built for the host
 with g++: csrc/sponge.cu's permute_lane and sponge_lane against the port's
-golden model and the SAGE hash_field / hash_bytes vectors of the five
-20-limb fields, including whole 10 KB messages (331 elements).
+golden model and the SAGE hash_field / hash_bytes vectors of all seven
+fields, at 8 and 12 words, including whole 10 KB messages (331 elements of
+31 bytes for Vesta, 218 of 47 bytes for BLS12-381).
 
 sponge.cu is __host__ __device__ outside its kernels, so this checks the
 very code the kernels are compiled from, without a card, with the
@@ -18,34 +19,44 @@ import pytest
 
 from anemoi_tpu_torch.ff import cuda_backend, golden, native
 from anemoi_tpu_torch.ff.limb_ops import decode_ints, encode_ints, random_canonical
-from anemoi_tpu_torch.fields.params import INSTANCE_NAMES, KERNEL_FIELDS, get_instance, int_from_limbs
+from anemoi_tpu_torch.fields.params import FIELD_NAMES, INSTANCE_NAMES, get_instance, int_from_limbs
 
 from .vector_loader import load_vectors
 
 _SHIM = r"""
 #include <stddef.h>
 #include "sponge.cu"
-extern "C" {
 // the kernels' per-thread work, lane by lane, on limb-major int32 arrays
-void t_permute(int32_t* out, const int32_t* in, int n, int width, const uint32_t* consts) {
-    const AnemoiConsts& c = *(const AnemoiConsts*)consts;
+template <int NW> void permute_n(int32_t* out, const int32_t* in, int n, int width, const uint32_t* consts) {
+    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
     for (int i = 0; i < n; ++i) {
-        if (width == 2) permute_lane<2>(out + i, in + i, (size_t)n, c);
-        else permute_lane<4>(out + i, in + i, (size_t)n, c);
+        if (width == 2) permute_lane<2, NW>(out + i, in + i, (size_t)n, c);
+        else permute_lane<4, NW>(out + i, in + i, (size_t)n, c);
     }
 }
-void t_sponge(int32_t* out, const int32_t* in, int n, int width, int E, const uint32_t* consts) {
-    const AnemoiConsts& c = *(const AnemoiConsts*)consts;
+template <int NW> void sponge_n(int32_t* out, const int32_t* in, int n, int width, int E, const uint32_t* consts) {
+    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
     for (int i = 0; i < n; ++i) {
-        if (width == 2) sponge_lane<2>(out + i, in + i, (size_t)n, E, c);
-        else sponge_lane<4>(out + i, in + i, (size_t)n, E, c);
+        if (width == 2) sponge_lane<2, NW>(out + i, in + i, (size_t)n, E, c);
+        else sponge_lane<4, NW>(out + i, in + i, (size_t)n, E, c);
     }
 }
-int t_consts_words(void) { return (int)(sizeof(AnemoiConsts) / 4); }
+extern "C" {
+void t_permute(int32_t* out, const int32_t* in, int n, int width, int words, const uint32_t* consts) {
+    if (words == 8) permute_n<8>(out, in, n, width, consts);
+    else permute_n<12>(out, in, n, width, consts);
+}
+void t_sponge(int32_t* out, const int32_t* in, int n, int width, int E, int words, const uint32_t* consts) {
+    if (words == 8) sponge_n<8>(out, in, n, width, E, consts);
+    else sponge_n<12>(out, in, n, width, E, consts);
+}
+int t_consts_words(int words) {
+    return words == 8 ? (int)(sizeof(AnemoiConsts<8>) / 4) : (int)(sizeof(AnemoiConsts<12>) / 4);
+}
 }
 """
 
-FULL_BYTES = 10 * 1024  # bench.py's 10 KB message: 331 elements of 31 bytes
+FULL_BYTES = 10 * 1024  # bench.py's 10 KB message: 331 elements of 31 bytes, or 218 of 47
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +73,11 @@ def lib(tmp_path_factory):
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(so))
-    lib.t_permute.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.t_permute.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]
     lib.t_sponge.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p]
+                             ctypes.c_int, ctypes.c_void_p]
+    lib.t_consts_words.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -78,7 +91,7 @@ def _host_sponge(lib, inst, msgs):
     out = np.zeros((L, B), np.int32)
     words = cuda_backend.consts_words(inst)
     lib.t_sponge(out.ctypes.data, np.ascontiguousarray(x.reshape(E * L, B)).ctypes.data, B, inst.width, E,
-                 words.ctypes.data)
+                 inst.field.kernel_words, words.ctypes.data)
     assert out.min() >= 0 and out.max() < 1 << 13
     return decode_ints(out, inst.field)
 
@@ -88,10 +101,11 @@ def _message_ints(inst, data):
 
 
 def test_consts_layout(lib):
-    assert lib.t_consts_words() == len(cuda_backend.consts_words(get_instance("vesta", "anemoi_4_3")))
+    for nw, field in ((8, "vesta"), (12, "bls12_381")):
+        assert lib.t_consts_words(nw) == len(cuda_backend.consts_words(get_instance(field, "anemoi_4_3")))
 
 
-@pytest.mark.parametrize("field", KERNEL_FIELDS)
+@pytest.mark.parametrize("field", FIELD_NAMES)
 @pytest.mark.parametrize("iname", INSTANCE_NAMES)
 def test_host_sponge_vectors(lib, field, iname):
     """Every length of the vectors, E < rate among them: sponge_lane takes
@@ -116,7 +130,8 @@ def test_host_sponge_matches_golden(lib, iname):
         msgs = [[int.from_bytes(rng.bytes(40), "little") % inst.field.p for _ in range(E)] for _ in range(3)]
         if E == 0:
             out = np.zeros((20, 3), np.int32)
-            lib.t_sponge(out.ctypes.data, out.ctypes.data, 3, inst.width, 0, cuda_backend.consts_words(inst).ctypes.data)
+            lib.t_sponge(out.ctypes.data, out.ctypes.data, 3, inst.width, 0, 8,
+                         cuda_backend.consts_words(inst).ctypes.data)
             assert decode_ints(out, inst.field) == [0, 0, 0]
             continue
         assert _host_sponge(lib, inst, msgs) == [golden.hash_field(inst, m)[0] for m in msgs], E
@@ -132,7 +147,18 @@ def test_host_sponge_full_message(lib, iname):
     assert _host_sponge(lib, inst, [elems]) == golden.hash_bytes(inst, data)
 
 
-@pytest.mark.parametrize("field", ["vesta", "bn_254"])
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_sponge_full_message_12_words(lib, iname):
+    """A whole 10 KB BLS12-381 message at 12 words: 218 elements of 47
+    bytes (73 permutations for 4_3, 218 for 2_1)."""
+    inst = get_instance("bls12_381", iname)
+    data = np.random.default_rng(24).bytes(FULL_BYTES)
+    elems = _message_ints(inst, data)
+    assert len(elems) == 218
+    assert _host_sponge(lib, inst, [elems]) == golden.hash_bytes(inst, data)
+
+
+@pytest.mark.parametrize("field", ["vesta", "bn_254", "bls12_377", "bls12_381"])
 @pytest.mark.parametrize("iname", INSTANCE_NAMES)
 def test_host_permute_matches_golden(lib, field, iname):
     inst = get_instance(field, iname)
@@ -141,7 +167,8 @@ def test_host_permute_matches_golden(lib, field, iname):
     x[:, :, 0] = 0
     x = np.ascontiguousarray(x.reshape(W * L, 5))
     out = np.zeros_like(x)
-    lib.t_permute(out.ctypes.data, x.ctypes.data, 5, W, cuda_backend.consts_words(inst).ctypes.data)
+    lib.t_permute(out.ctypes.data, x.ctypes.data, 5, W, inst.field.kernel_words,
+                  cuda_backend.consts_words(inst).ctypes.data)
     states = [decode_ints(x.reshape(W, L, 5)[w], inst.field) for w in range(W)]
     got = [decode_ints(out.reshape(W, L, 5)[w], inst.field) for w in range(W)]
     for b in range(5):

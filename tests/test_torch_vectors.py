@@ -1,5 +1,5 @@
-"""The port's plain Jive against the SAGE vectors of the five 20-limb
-fields, and the plain path's cost in tensor calls.
+"""The port's plain Jive against the SAGE vectors of all seven fields, and
+the plain path's cost in tensor calls.
 
 Tolerance: exact (the vectors' field elements).
 """
@@ -9,13 +9,13 @@ import pytest
 from torch.overrides import TorchFunctionMode
 
 from anemoi_tpu_torch.ff import cuda_backend
-from anemoi_tpu_torch.fields.params import KERNEL_FIELDS, get_instance
+from anemoi_tpu_torch.fields.params import FIELD_NAMES, get_instance
 from anemoi_tpu_torch.modes.batched import decode_states, encode_states, jive_compress_batch_fn
 
 from .vector_loader import load_vectors
 
 
-@pytest.mark.parametrize("field", KERNEL_FIELDS)
+@pytest.mark.parametrize("field", FIELD_NAMES)
 def test_plain_jive_vectors(field):
     for iname in ("anemoi_2_1", "anemoi_4_3"):
         inst = get_instance(field, iname)
