@@ -3,8 +3,11 @@
 // (sponge.cu) share, at 8 words for the five 20-limb fields and at 12 for
 // the two 30-limb ones.
 //
-// A state is W field elements in Montgomery form with R' = 2^(32 NW)
-// (field32.cuh), held by one thread.  Rounds: ARK, MDS (1 or 2 columns),
+// A state is W field elements in Montgomery form with R' = 2^(32 NW),
+// held whole by one thread (ThreadArith over field32.cuh: the Jive and
+// permutation kernels) or word-sliced over a group of four lanes
+// (GroupArith over field32_group.cuh: the sponge kernel); the body is
+// written once over the two.  Rounds: ARK, MDS (1 or 2 columns),
 // open Flystel; then a final MDS.  x^(1/alpha) is a left-to-right binary
 // ladder over the exponent's bits (Vesta: 253 squarings, 124 products;
 // BLS12-381: 380 and 193; the reference's addition chains have 293 and 454
@@ -21,6 +24,7 @@
 #include <stdint.h>
 
 #include "field32.cuh"
+#include "field32_group.cuh"
 
 #define MAX_ROUND_COLUMNS 28  // rounds * columns of the largest instance: 14 x 2 (Vesta and BLS12-381 4_3)
 
@@ -50,83 +54,204 @@ F32_FN void f32_copy(uint32_t r[NW], const uint32_t a[NW]) {
     for (int j = 0; j < NW; ++j) r[j] = a[j];
 }
 
-template <int NW>
-F32_FN void mul_g(uint32_t r[NW], const uint32_t a[NW], const AnemoiConsts<NW>& c) {
-    f32_mont_mul<NW>(r, a, c.beta, c.p, c.n0);
-}
+// The permutation's arithmetic, as a policy the body below is written
+// over: Elem is one field element as its holder keeps it, and add, sub,
+// mul, sqr, mul_g (the product by the generator beta) and copy act on
+// Elems; add also takes a constant of the struct (C(k), D(k), delta()).
+// sqr_n, mul_n and mul_g_n do N independent products at once.  LOCKSTEP
+// runs the Flystel columns of a round side by side, each operation on
+// every column before the next, and their products as one N-fold product,
+// so that their latencies overlap.
 
-// x^(1/alpha): left-to-right binary ladder over the exponent's bits.
+// One thread holds whole elements (field32.cuh): the Jive and permutation
+// kernels, and sponge_lane.  Columns run one after the other.
 template <int NW>
-F32_FN void exp_inv_alpha(uint32_t r[NW], const uint32_t x[NW], const AnemoiConsts<NW>& c) {
-    uint32_t acc[NW];
-    f32_copy<NW>(acc, x);
-#pragma unroll 1
-    for (int bit = (int)c.inv_alpha_bits - 2; bit >= 0; --bit) {
-        f32_mont_sqr<NW>(acc, acc, c.p, c.n0);
-        if ((c.inv_alpha[bit >> 5] >> (bit & 31)) & 1u) f32_mont_mul<NW>(acc, acc, x, c.p, c.n0);
+struct ThreadArith {
+    using Elem = uint32_t[NW];
+    static constexpr bool LOCKSTEP = false;
+    const AnemoiConsts<NW>& c;
+    G32_MEMBER void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const { f32_add<NW>(r, a, b, c.p); }
+    G32_MEMBER void sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const { f32_sub<NW>(r, a, b, c.p); }
+    G32_MEMBER void mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const {
+        f32_mont_mul<NW>(r, a, b, c.p, c.n0);
     }
-    f32_copy<NW>(r, acc);
+    G32_MEMBER void sqr(uint32_t r[NW], const uint32_t a[NW]) const { f32_mont_sqr<NW>(r, a, c.p, c.n0); }
+    G32_MEMBER void mul_g(uint32_t r[NW], const uint32_t a[NW]) const { f32_mont_mul<NW>(r, a, c.beta, c.p, c.n0); }
+    G32_MEMBER void copy(uint32_t r[NW], const uint32_t a[NW]) const { f32_copy<NW>(r, a); }
+    template <int N>
+    G32_MEMBER void sqr_n(Elem* r, const Elem* a) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) sqr(r[i], a[i]);
+    }
+    template <int N>
+    G32_MEMBER void mul_n(Elem* r, const Elem* a, const Elem* b) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) mul(r[i], a[i], b[i]);
+    }
+    template <int N>
+    G32_MEMBER void mul_g_n(Elem* r, const Elem* a) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) mul_g(r[i], a[i]);
+    }
+    G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
+    G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
+    G32_MEMBER const uint32_t* delta() const { return c.delta; }
+};
+
+// A group of four lanes holds each element word-sliced (field32_group.cuh,
+// lane policy P): the sponge kernel.  The lane's slices of p, beta and
+// delta stay in registers; a round constant is sliced where it is added.
+// Squaring is the group product of a value by itself.  Columns run in
+// lockstep, so the Flystels' products come N at a time; mds's products by
+// beta (60 of a Vesta 4_3 permutation's 10,728) come one at a time.
+template <int NW, class P>
+struct GroupArith {
+    static constexpr int S = NW / 4;
+    using Elem = uint32_t[P::H][S];
+    static constexpr bool LOCKSTEP = true;
+    const AnemoiConsts<NW>& c;
+    uint32_t p[P::H][S], beta[P::H][S], delta_[P::H][S];
+    G32_MEMBER GroupArith(const AnemoiConsts<NW>& consts) : c(consts) {
+        g_slice<NW, P>(p, c.p);
+        g_slice<NW, P>(beta, c.beta);
+        g_slice<NW, P>(delta_, c.delta);
+    }
+    G32_MEMBER void add(Elem r, const Elem a, const Elem b) const { g_add<NW, P>(r, a, b, p); }
+    G32_MEMBER void add(Elem r, const Elem a, const uint32_t k[NW]) const {
+        Elem s;
+        g_slice<NW, P>(s, k);
+        g_add<NW, P>(r, a, s, p);
+    }
+    G32_MEMBER void sub(Elem r, const Elem a, const Elem b) const { g_sub<NW, P>(r, a, b, p); }
+    G32_MEMBER void mul_g(Elem r, const Elem a) const { g_mont_mul<NW, P>(r, a, beta, p, c.n0); }
+    G32_MEMBER void copy(Elem r, const Elem a) const { g_copy<NW, P>(r, a); }
+    // r = pick ? a : b, word by word (pick is the same in every lane)
+    G32_MEMBER void select(Elem r, bool pick, const Elem a, const Elem b) const {
+#pragma unroll
+        for (int h = 0; h < P::H; ++h)
+#pragma unroll
+            for (int j = 0; j < S; ++j) r[h][j] = pick ? a[h][j] : b[h][j];
+    }
+    template <int N>
+    G32_MEMBER void sqr_n(Elem* r, const Elem* a) const { g_mont_mul_n<NW, P, N>(r, a, a, p, c.n0); }
+    template <int N>
+    G32_MEMBER void mul_n(Elem* r, const Elem* a, const Elem* b) const { g_mont_mul_n<NW, P, N>(r, a, b, p, c.n0); }
+    template <int N>
+    G32_MEMBER void mul_g_n(Elem* r, const Elem* a) const {
+        Elem g[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) g_copy<NW, P>(g[i], beta);
+        g_mont_mul_n<NW, P, N>(r, a, g, p, c.n0);
+    }
+    G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
+    G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
+    G32_MEMBER const Elem& delta() const { return delta_; }
+};
+
+// x^(1/alpha) of N elements: left-to-right binary ladder over the
+// exponent's bits.  Under LOCKSTEP each trip of the loop is one N-fold
+// product, a squaring or, after a set bit, the product by x, so the loop
+// holds one copy of the product's code.
+template <int N, class A>
+F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::Elem* x) {
+    typename A::Elem acc[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) ar.copy(acc[i], x[i]);
+    if constexpr (A::LOCKSTEP) {
+        typename A::Elem f[N];
+        bool by_x = false;
+#pragma unroll 1
+        for (int bit = (int)ar.c.inv_alpha_bits - 2; bit >= 0 || by_x;) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) ar.select(f[i], by_x, x[i], acc[i]);
+            if (by_x) {
+                by_x = false;
+            } else {
+                by_x = (ar.c.inv_alpha[bit >> 5] >> (bit & 31)) & 1u;
+                --bit;
+            }
+            ar.template mul_n<N>(acc, acc, f);
+        }
+    } else {
+#pragma unroll 1
+        for (int bit = (int)ar.c.inv_alpha_bits - 2; bit >= 0; --bit) {
+            ar.template sqr_n<N>(acc, acc);
+            if ((ar.c.inv_alpha[bit >> 5] >> (bit & 31)) & 1u) ar.template mul_n<N>(acc, acc, x);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) ar.copy(r[i], acc[i]);
 }
 
-// Open Flystel: x -= g*y^2 ; y -= x^(1/alpha) ; x += g*y^2 + delta.
-template <int NW>
-F32_FN void flystel(uint32_t x[NW], uint32_t y[NW], const AnemoiConsts<NW>& c) {
-    uint32_t t[NW];
-    f32_mont_sqr<NW>(t, y, c.p, c.n0);
-    mul_g<NW>(t, t, c);
-    f32_sub<NW>(x, x, t, c.p);
-    exp_inv_alpha<NW>(t, x, c);
-    f32_sub<NW>(y, y, t, c.p);
-    f32_mont_sqr<NW>(t, y, c.p, c.n0);
-    mul_g<NW>(t, t, c);
-    f32_add<NW>(x, x, t, c.p);
-    f32_add<NW>(x, x, c.delta, c.p);
+// Open Flystel on N columns (x[i], y[i]):
+// x -= g*y^2 ; y -= x^(1/alpha) ; x += g*y^2 + delta.
+template <int N, class A>
+F32_FN void flystel(const A& ar, typename A::Elem* x, typename A::Elem* y) {
+    typename A::Elem t[N];
+    ar.template sqr_n<N>(t, y);
+    ar.template mul_g_n<N>(t, t);
+#pragma unroll
+    for (int i = 0; i < N; ++i) ar.sub(x[i], x[i], t[i]);
+    exp_inv_alpha<N>(ar, t, x);
+#pragma unroll
+    for (int i = 0; i < N; ++i) ar.sub(y[i], y[i], t[i]);
+    ar.template sqr_n<N>(t, y);
+    ar.template mul_g_n<N>(t, t);
+#pragma unroll
+    for (int i = 0; i < N; ++i) ar.add(x[i], x[i], t[i]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) ar.add(x[i], x[i], ar.delta());
 }
 
 // The linear layer and the pseudo-Hadamard transform.  Width 4 does four
 // products by the generator (mul_g); width 2 does none.
-template <int W, int NW>
-F32_FN void mds(uint32_t s[W][NW], const AnemoiConsts<NW>& c) {
+template <int W, class A>
+F32_FN void mds(const A& ar, typename A::Elem* s) {
     if constexpr (W == 2) {
-        f32_add<NW>(s[1], s[1], s[0], c.p);
-        f32_add<NW>(s[0], s[0], s[1], c.p);
+        ar.add(s[1], s[1], s[0]);
+        ar.add(s[0], s[0], s[1]);
     } else {
-        uint32_t t[NW];
-        mul_g<NW>(t, s[1], c);
-        f32_add<NW>(s[0], s[0], t, c.p);
-        mul_g<NW>(t, s[0], c);
-        f32_add<NW>(s[1], s[1], t, c.p);
-        mul_g<NW>(t, s[2], c);
-        f32_add<NW>(s[3], s[3], t, c.p);
-        mul_g<NW>(t, s[3], c);
-        f32_add<NW>(s[2], s[2], t, c.p);
+        typename A::Elem t;
+        ar.mul_g(t, s[1]);
+        ar.add(s[0], s[0], t);
+        ar.mul_g(t, s[0]);
+        ar.add(s[1], s[1], t);
+        ar.mul_g(t, s[2]);
+        ar.add(s[3], s[3], t);
+        ar.mul_g(t, s[3]);
+        ar.add(s[2], s[2], t);
         // swap the two y words, then the pseudo-Hadamard transform
-        f32_copy<NW>(t, s[2]);
-        f32_copy<NW>(s[2], s[3]);
-        f32_copy<NW>(s[3], t);
-        f32_add<NW>(s[2], s[2], s[0], c.p);
-        f32_add<NW>(s[3], s[3], s[1], c.p);
-        f32_add<NW>(s[0], s[0], s[2], c.p);
-        f32_add<NW>(s[1], s[1], s[3], c.p);
+        ar.copy(t, s[2]);
+        ar.copy(s[2], s[3]);
+        ar.copy(s[3], t);
+        ar.add(s[2], s[2], s[0]);
+        ar.add(s[3], s[3], s[1]);
+        ar.add(s[0], s[0], s[2]);
+        ar.add(s[1], s[1], s[3]);
     }
 }
 
-// The permutation, in place: rounds x (ARK, MDS, S-box), then MDS.
-template <int W, int NW>
-F32_FN void permute_state(uint32_t s[W][NW], const AnemoiConsts<NW>& c) {
+// The permutation of a state of W elements, in place: rounds x (ARK, MDS,
+// S-box), then MDS.
+template <int W, class A>
+F32_FN void permute_state(typename A::Elem* s, const A& ar) {
     constexpr int COLS = W / 2;
 #pragma unroll 1
-    for (int r = 0; r < (int)c.rounds; ++r) {
+    for (int r = 0; r < (int)ar.c.rounds; ++r) {
 #pragma unroll
         for (int i = 0; i < COLS; ++i) {
-            f32_add<NW>(s[i], s[i], c.C[r * COLS + i], c.p);
-            f32_add<NW>(s[COLS + i], s[COLS + i], c.D[r * COLS + i], c.p);
+            ar.add(s[i], s[i], ar.C(r * COLS + i));
+            ar.add(s[COLS + i], s[COLS + i], ar.D(r * COLS + i));
         }
-        mds<W, NW>(s, c);
+        mds<W>(ar, s);
+        if constexpr (A::LOCKSTEP) {
+            flystel<COLS>(ar, s, s + COLS);
+        } else {
 #pragma unroll
-        for (int i = 0; i < COLS; ++i) flystel<NW>(s[i], s[COLS + i], c);
+            for (int i = 0; i < COLS; ++i) flystel<1>(ar, s + i, s + COLS + i);
+        }
     }
-    mds<W, NW>(s, c);
+    mds<W>(ar, s);
 }
 
 #ifdef __CUDACC__

@@ -68,7 +68,7 @@ F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiCon
 #pragma unroll
         for (int j = 1; j < K; ++j) f32_add<NW>(ff[i], ff[i], s[i + OUT * j], c.p);
     }
-    permute_state<W, NW>(s, c);
+    permute_state<W>(s, ThreadArith<NW>{c});
 #pragma unroll
     for (int i = 0; i < OUT; ++i) {
 #pragma unroll

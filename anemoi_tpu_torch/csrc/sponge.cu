@@ -11,31 +11,49 @@
 // limbs in Montgomery form with R = 2^(13L), canonical in and out; L = 20
 // or 30.
 //
-// Design.  One thread per state (permutation) or per message (sponge);
-// neighbouring threads own neighbouring lanes, so every limb row is read and
-// written coalesced.  The entry and exit conversions are jive.cu's
-// (f32_from_limbs: one Montgomery product into R' = 2^(32 NW) words;
-// f32_to_limbs: one product back), and the permutation is the body that
-// jive.cu runs (anemoi32.cuh).  Like jive.cu, the file is built twice,
-// -DANEMOI_WORDS=8 and 12.
+// Design.  The permutation runs one thread per state; neighbouring threads
+// own neighbouring lanes, so every limb row is read and written coalesced.
+// The entry and exit conversions are jive.cu's (f32_from_limbs: one
+// Montgomery product into R' = 2^(32 NW) words; f32_to_limbs: one product
+// back), and the permutation is the body that jive.cu runs (anemoi32.cuh,
+// ThreadArith).  Like jive.cu, the file is built twice, -DANEMOI_WORDS=8
+// and 12.
+//   * The sponge runs four lanes per message: four adjacent lanes of a
+//     warp, so a warp holds 8 messages and a 128-thread block 32.  Each lane
+//     holds its slice of every state word, words [l S, l S + S) of 8 or 12,
+//     S = 2 or 3, and the group does all the field arithmetic together
+//     (field32_group.cuh: word-sliced Montgomery products and adds, through
+//     shuffles and votes of width 4; GroupArith in anemoi32.cuh).  The two
+//     Flystel columns of a width-4 round run in lockstep, so their shuffle
+//     latencies overlap; width 2 has one column and cannot.  Why: one thread
+//     per message gave 4,096 messages 128 warps for the card's 528 warp
+//     schedulers (132 SMs x 4), and one warp nearly fills a scheduler's
+//     issue; four lanes a message give 512 warps, each with a quarter of the
+//     stream.  Each lane reads all the limbs of an element (the group's four
+//     reads share their sectors), packs them and keeps its slice; the digest
+//     is gathered into every lane and lane l writes limbs l, l + 4, ....
 //   * The sponge keeps its state in registers for all ceil(E / rate)
-//     permutations of a message.  Element j is read as a coalesced limb
-//     row, converted on entry and added into rate word j % rate.  Blocks
-//     run as one rolled loop over one permutation body: in the last block
-//     of a message whose length is not a multiple of the rate, the word
-//     after the last element (row `tail`) takes sigma = 1 in place of an
-//     element.  When the rate divides E, the reference adds sigma to the
-//     last capacity word after the last permutation: it never reaches the
-//     digest (pallas_backend.py:554-558), so it is not added.
+//     permutations of a message.  Element j is converted on entry and added
+//     into rate word j % rate.  Blocks run as one rolled loop over one
+//     permutation body: in the last block of a message whose length is not
+//     a multiple of the rate, the word after the last element (row `tail`)
+//     takes sigma = 1 in place of an element.  When the rate divides E, the
+//     reference adds sigma to the last capacity word after the last
+//     permutation: it never reaches the digest (pallas_backend.py:554-558),
+//     so it is not added.
 //   * The TPU kernel's 8-row padding of rate, tail and output rows and its
 //     grid / pl.when staging exist for Mosaic's tiling; here a loop inside
-//     the thread takes the place of the sequential grid axis.
+//     the group takes the place of the sequential grid axis.
 //   * E is a runtime argument and loops stay rolled, so four
 //     instantiations (permutation and sponge, width 2 and 4) build in
-//     seconds.  The ragged edge of N is masked in the kernel.
+//     seconds.  The ragged edge of N is masked in the kernel: the
+//     permutation's threads past it return; the sponge's groups past it run
+//     on the last message and do not store, since every lane of a warp takes
+//     part in every shuffle.
 //   * Everything but the kernels and their launchers is __host__ __device__,
-//     so the host tests build this file with g++ and run permute_lane and
-//     sponge_lane.
+//     so the host tests build this file with g++ and run permute_lane,
+//     sponge_lane (the sponge on one thread, which no kernel runs now) and
+//     sponge_group over HostLanes, the code the sponge kernel runs.
 //
 // Bound on the card: 32-bit integer multiply-adds.  A Vesta 4_3 permutation
 // is 28 Flystels of 250 squarings (208 IMADs) and 47 products (264 IMADs)
@@ -45,9 +63,9 @@
 // of magnitude.  A BLS12-381 4_3 permutation is ~6.17 M IMADs (12-word
 // squarings of 456 IMADs, products of 588), and a 10 KB message (218
 // elements of 47 bytes) takes 73 of them.  chip_smoke.py computes the
-// bound; PERF.md has the numbers.  What the design does about that: nothing
-// yet, as in jive.cu.  At 4,096 messages the grid is 32 blocks of 128
-// threads, a quarter of the 132 SMs.
+// bound (the work, whatever the lanes); PERF.md has the numbers.  The group
+// product does the same word products as one thread, split four ways, plus
+// three shuffles a word step and a few votes.
 
 #include <stdint.h>
 #include <string.h>
@@ -64,7 +82,7 @@ F32_FN void permute_lane(int32_t* out, const int32_t* in, size_t n, const Anemoi
     uint32_t s[W][NW];
 #pragma unroll
     for (int w = 0; w < W; ++w) f32_from_limbs<NW>(s[w], in + (size_t)w * NL * n, n, c.c_in, c.p, c.n0);
-    permute_state<W, NW>(s, c);
+    permute_state<W>(s, ThreadArith<NW>{c});
 #pragma unroll
     for (int w = 0; w < W; ++w) f32_to_limbs<NW>(out + (size_t)w * NL * n, n, s[w], c.c_out, c.p, c.n0);
 }
@@ -95,12 +113,79 @@ F32_FN void sponge_lane(int32_t* out, const int32_t* in, size_t n, int E, const 
                 f32_add<NW>(s[i], s[i], c.one, c.p);
             }
         }
-        permute_state<W, NW>(s, c);
+        permute_state<W>(s, ThreadArith<NW>{c});
     }
     f32_to_limbs<NW>(out, n, s[0], c.c_out, c.p, c.n0);
 }
 
+// The sponge over one message on a group of four lanes (lane policy P,
+// field32_group.cuh): as sponge_lane, with each state word sliced over the
+// group.  Every lane reads the message at in[r * n]; the digest is written
+// at out[r * n] when `store` holds.
+template <int W, int NW, class P>
+F32_FN void sponge_group(int32_t* out, const int32_t* in, size_t n, int E, bool store, const AnemoiConsts<NW>& c) {
+    constexpr int RATE = W - 1, NL = f32_limbs<NW>, S = NW / 4;
+    const GroupArith<NW, P> ar(c);
+    uint32_t s[W][P::H][S];
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+#pragma unroll
+        for (int h = 0; h < P::H; ++h)
+#pragma unroll
+            for (int j = 0; j < S; ++j) s[w][h][j] = 0;
+    const int blocks = (E + RATE - 1) / RATE;
+#pragma unroll 1
+    for (int b = 0; b < blocks; ++b) {
+#pragma unroll
+        for (int i = 0; i < RATE; ++i) {
+            const int j = b * RATE + i;
+            if (j < E) {
+                uint32_t e[P::H][S];
+                g_from_limbs<NW, P>(e, in + (size_t)j * NL * n, n, c.c_in, ar.p, c.n0);
+                ar.add(s[i], s[i], e);
+            } else if (j == E) {
+                ar.add(s[i], s[i], c.one);
+            }
+        }
+        permute_state<W>(s, ar);
+    }
+    g_to_limbs<NW, P>(out, n, s[0], c.c_out, ar.p, c.n0, store);
+}
+
 #ifdef __CUDACC__
+// A thread is one lane of a group of four adjacent lanes of its warp.  The
+// whole warp reaches every call (blocks are whole warps, and no lane
+// leaves early).  The functions are __host__ __device__ only so that the
+// templates above, instantiated for the kernel, need no host counterpart;
+// their host bodies never run.
+#ifdef __CUDA_ARCH__
+#define WARP_LANES(device, host) device
+#else
+#define WARP_LANES(device, host) host
+#endif
+struct WarpLanes {
+    static constexpr int H = 1;
+    static constexpr unsigned FULL = 0xffffffffu;
+    G32_MEMBER static int lane(int) { return WARP_LANES((int)(threadIdx.x % G32_LANES), 0); }
+    G32_MEMBER static void bcast(uint32_t out[1], const uint32_t v[1], int src) {
+        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], src, G32_LANES), v[0]);
+    }
+    // lane 3's source, lane 4, wraps to lane 0 of the group
+    G32_MEMBER static void next(uint32_t out[1], const uint32_t v[1]) {
+        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], lane(0) + 1, G32_LANES), v[0]);
+    }
+    G32_MEMBER static void prev(uint32_t out[1], const uint32_t v[1]) {
+        const uint32_t x = WARP_LANES(__shfl_up_sync(FULL, v[0], 1, G32_LANES), 0u);
+        out[0] = lane(0) ? x : 0u;
+    }
+    // the group's four votes, lane l at bit l
+    G32_MEMBER static uint32_t ballot(const bool pred[1]) {
+        return WARP_LANES((__ballot_sync(FULL, pred[0]) >> (threadIdx.x % 32 & ~(G32_LANES - 1u))), 0u) &
+               ((1u << G32_LANES) - 1);
+    }
+};
+#undef WARP_LANES
+
 using Consts = AnemoiConsts<ANEMOI_WORDS>;
 
 template <int W>
@@ -111,12 +196,15 @@ __global__ void __launch_bounds__(BLOCK) permute_kernel(const int32_t* __restric
     permute_lane<W, ANEMOI_WORDS>(out + lane, in + lane, (size_t)n, c);
 }
 
+// Four lanes per message: thread t is lane t % 4 of message t / 4.
 template <int W>
 __global__ void __launch_bounds__(BLOCK) sponge_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                                                        long long n, int E, const __grid_constant__ Consts c) {
-    const long long lane = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    if (lane >= n) return;  // the ragged edge
-    sponge_lane<W, ANEMOI_WORDS>(out + lane, in + lane, (size_t)n, E, c);
+    static_assert(BLOCK % 32 == 0, "the groups' shuffles need whole warps");
+    const long long msg = ((long long)blockIdx.x * BLOCK + threadIdx.x) / G32_LANES;
+    const bool live = msg < n;  // the ragged edge: a group past it runs on the last message, stores nothing
+    const long long m = live ? msg : n - 1;
+    sponge_group<W, ANEMOI_WORDS, WarpLanes>(out + m, in + m, (size_t)n, E, live, c);
 }
 
 extern "C" {
@@ -146,7 +234,8 @@ int anemoi_sponge(const void* in, void* out, long long n, int width, int E, cons
     if ((width != 2 && width != 4) || E < width - 1) return (int)cudaErrorInvalidValue;
     Consts c;
     memcpy(&c, consts, sizeof c);
-    const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK)), block(BLOCK);
+    const long long threads = G32_LANES * n;  // four lanes per message
+    const dim3 grid((unsigned)((threads + BLOCK - 1) / BLOCK)), block(BLOCK);
     cudaStream_t s = (cudaStream_t)stream;
     const int32_t* x = (const int32_t*)in;
     int32_t* y = (int32_t*)out;
@@ -162,5 +251,8 @@ const char* anemoi_error_string(int err) { return cudaGetErrorString((cudaError_
 
 // The layout of the constants this library takes: 507 words at 8, 759 at 12.
 int anemoi_sponge_consts_words(void) { return (int)(sizeof(Consts) / 4); }
+
+// The sponge kernel's lanes per message.
+int anemoi_sponge_lanes(void) { return G32_LANES; }
 }
 #endif  // __CUDACC__

@@ -10,7 +10,11 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
     int32 [WIDTH*L, N] -> int32 [WIDTH*L, N].
   * ``sponge`` (``csrc/sponge.cu``, for ``sponge_pallas``): the fused
     fixed-length sponge over messages of E >= rate elements,
-    int32 [E*L, N] -> int32 [DIGEST*L, N].
+    int32 [E*L, N] -> int32 [DIGEST*L, N].  Its kernel runs four lanes
+    per message (4N threads): each lane holds a quarter of every state
+    word, and the group does the field arithmetic together through warp
+    shuffles (``csrc/field32_group.cuh``); the Jive and permutation kernels
+    run one thread per state.
 
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over

@@ -26,7 +26,6 @@ from __future__ import annotations
 import ctypes
 import math
 import re
-import shutil
 import subprocess
 from functools import lru_cache
 from pathlib import Path
@@ -34,7 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, sass
 from .ff import cuda_backend
 from .ff import limb_ops as lo
 from .fields.params import FieldParams, get_field, get_instance
@@ -233,16 +232,9 @@ def fill_shape(sms: int) -> tuple:
 def mad_sass() -> list[str]:
     """The SASS of mad_loop_kernel (``cuobjdump -sass`` on the built
     library): its instruction lines."""
-    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(library().path)], capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    lines, inside = [], False
-    for line in text.splitlines():
-        if "Function :" in line:
-            inside = "mad_loop_kernel" in line
-        elif inside and re.search(r"/\*[0-9a-f]{4}\*/", line):
-            lines.append(re.sub(r"\s+", " ", line.split(";")[0]).strip() + ";")
-    return lines
+    kernels = sass.functions(sass.disassemble(library().path))
+    lines = next(v for k, v in kernels.items() if "mad_loop_kernel" in k)
+    return [re.sub(r"\s+", " ", line.split(";")[0]).strip() + ";" for line in lines]
 
 
 def main() -> None:

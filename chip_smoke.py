@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port's main paths on one NVIDIA GPU and checks them.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases N,N,...]
 
 The main paths, through the port's entry points, with random inputs from
 ``--seed``: batched anemoi_2_1 Jive 2-to-1 compression and a Merkle root
@@ -15,7 +15,10 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
   1. the card: its name, and name and power limit from nvidia-smi;
   2. the builds, all started together: csrc/jive.cu and csrc/sponge.cu with
      nvcc once for 8 words and once for 12, csrc/microbench.cu, each timed,
-     with ptxas's report, and the host's byte packer with g++;
+     with ptxas's report, and the host's byte packer with g++; each Jive,
+     permutation and sponge kernel's registers and spills (beside PR 7's
+     for the Jive and permutation kernels, whose code must not change) and
+     its SASS's local-memory loads and stores, shuffles, votes and IMADs;
   3. the kernel against its plain PyTorch version on the card, bit for bit,
      for Vesta 2_1 (k=2) and Vesta 4_3 (k=2, 4): 4,099 states, the plain
      version on 257 of them (both ends, so the ragged last block is among
@@ -31,8 +34,9 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
   6. the permutation and sponge kernels against their plain versions, bit
      for bit: the permutation of Vesta 2_1 and 4_3 (4,099 states, 257 held
      against the plain version), the sponge over 1,024 messages of Vesta
-     4_3 with E = 3 (sigma, no extra permutation) and E = 4 (tail 1) and of
-     Vesta 2_1 with E = 2;
+     4_3 with E = 3 (sigma, no extra permutation), all held, and over 4,099
+     (not a whole warp of 8 messages nor a block of 32; 257 held at both
+     ends) with E = 4 (tail 1) and of Vesta 2_1 with E = 2;
   7. the SAGE hash_field and hash_bytes vectors of the five 20-limb fields
      x 2 instances through ``.batch.hash_field`` and ``.batch.hash_bytes``
      on the card, and the Vesta 2_1 digest of b"hello world" through
@@ -45,7 +49,9 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      equal to hash_bytes's); then host packing, kernel time (CUDA events)
      and bound; 32 sampled messages per instance against the port's golden
      model; and the sponge kernel alone over 65,536 Vesta 4_3 messages
-     made on the card, 4 lanes against the golden model;
+     made on the card, 4 lanes against the golden model; the sponge's lanes
+     per message and each time beside PR 7's (one lane per message), and
+     the kernel over the first 1,024 and 2,048 of the messages;
   9. the seven 12-word instantiations against their plain versions, bit for
      bit, 4,099 lanes each and 257 of them held: Jive (2,2), (4,2), (4,4)
      for BLS12-381, the permutation of BLS12-377 2_1 and 4_3, the sponge
@@ -67,7 +73,8 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      to 0 just before and read just after (``.batch.hash_bytes``: one
      sponge launch; ``BatchedSponge`` in rate-aligned chunks and the tail:
      73 permutation launches); host packing, kernel time, end to end, the
-     bound and its share; 32 sampled messages against the golden model;
+     bound and its share, beside PR 7's; 32 sampled messages against the
+     golden model;
  14. the microbenchmarks (``anemoi_tpu_torch/microbench.py``): the squaring
      chain's 8-deep check against Python ints (Vesta, BLS12-381) and its ns
      per squaring; the multiply-add loop at the JAX tool's shapes and at
@@ -83,6 +90,10 @@ instead, on sampled lanes.
 Any failure raises; the last line, printed only when every phase passed, is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside this file, it exits non-zero before printing any result.
+
+For development, ``--phases 6,8`` runs only the phases named, with phases
+1 and 2 (the device, the builds) and what they need (12 needs 11; 15 needs
+all): a short run on the card.  Such a run prints no result line.
 """
 
 from __future__ import annotations
@@ -111,6 +122,7 @@ REPS = 5
 MSG_BYTES = 10 * 1024  # bench.py:210-235, bench_sponge_10kb
 N_MSGS = 4096
 N_MSGS_FILL = 1 << 16  # enough messages to fill the card
+N_MSGS_PARTS = (1024, 2048)  # phase 8's kernel alone over fewer messages: 32 and 64 blocks of 32
 N_SPONGE_PLAIN = 1024
 N_GOLDEN = 32
 SPONGE_REPS = 3
@@ -149,6 +161,17 @@ def permutation_work(inst, chain) -> tuple[int, int]:
     return squarings, products
 
 
+# PR 7's figures (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's: ptxas registers of the
+# kernels whose code must not change, and the one-thread-per-message sponge kernel's times.
+PR7_REGISTERS = {(8, "jive_kernel<2,2>"): 64, (8, "jive_kernel<4,2>"): 126, (8, "jive_kernel<4,4>"): 126,
+                 (8, "permute_kernel<4>"): 96, (8, "permute_kernel<2>"): 60,
+                 (12, "jive_kernel<2,2>"): 92, (12, "jive_kernel<4,2>"): 254, (12, "jive_kernel<4,4>"): 246,
+                 (12, "permute_kernel<4>"): 144, (12, "permute_kernel<2>"): 90}
+PR7_SPONGE_MS = {"vesta/anemoi_4_3": 735.174, "vesta/anemoi_2_1": 1432.368, "bls12_381/anemoi_4_3": 1548.179,
+                 "vesta/anemoi_4_3, 65536": 2389.790}
+PR7_E2E_MS = {"vesta/anemoi_4_3": 1337.3, "bls12_381/anemoi_4_3": 2180.6}
+
+
 def golden_hash_bytes(args) -> list:
     """The port's golden model over one message, in a worker process."""
     field, iname, data = args
@@ -157,6 +180,21 @@ def golden_hash_bytes(args) -> list:
     from anemoi_tpu_torch.fields.params import get_instance
 
     return golden.hash_bytes(get_instance(field, iname), data)
+
+
+ALL_PHASES = frozenset(range(1, 16))
+PHASE_NEEDS = {12: {11}, 15: set(range(3, 15))}  # 12 resumes 11's tree; 15 reports every phase
+
+
+def phase_list(text: str) -> frozenset:
+    """--phases 6,8: those phases, the device and the builds (1, 2), and
+    the phases they need."""
+    chosen = {1, 2} | {int(x) for x in text.split(",") if x.strip()}
+    if not chosen <= ALL_PHASES:
+        raise argparse.ArgumentTypeError(f"phases are 1 to {max(ALL_PHASES)}")
+    for n in list(chosen):
+        chosen |= PHASE_NEEDS.get(n, set())
+    return frozenset(chosen)
 
 
 def phase(name: str) -> None:
@@ -188,7 +226,11 @@ def host_time_ms(fn) -> tuple[float, object]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", type=phase_list, default=ALL_PHASES, metavar="N,N,...",
+                    help="for development: only these phases, with the device, the builds and what they need; "
+                         "such a run prints no result line")
     args = ap.parse_args()
+    run = args.phases.__contains__
 
     import numpy as np
     import torch
@@ -199,6 +241,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import anemoi_tpu_torch as att
     from anemoi_tpu_torch import microbench as mb
+    from anemoi_tpu_torch import sass
     from anemoi_tpu_torch.ff import cuda_backend, golden, native
     from anemoi_tpu_torch.ff import limb_ops as lo
     from anemoi_tpu_torch.ff.limb_ops import random_canonical
@@ -231,154 +274,8 @@ def main() -> int:
         if err:
             fail(f"{what}: kernel and plain version differ (max abs err {err})")
 
-    # 1 ---------------------------------------------------------------------
-    phase("1 device")
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi("name,power.limit")
-    props = torch.cuda.get_device_properties(0)
-    max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    print(f"device: {kind}, {props.multi_processor_count} SMs, max SM clock {max_sm_mhz:.0f} MHz, "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    print(smi, flush=True)
-    imad_per_s = props.multi_processor_count * IMAD_PER_CLOCK_PER_SM * max_sm_mhz * 1e6
-
-    # 2 ---------------------------------------------------------------------
-    phase("2 build")
-    t = time.perf_counter()
-    builds = {
-        "jive.cu, 8 words": lambda: cuda_backend.library(8),
-        "jive.cu, 12 words": lambda: cuda_backend.library(12),
-        "sponge.cu, 8 words": lambda: cuda_backend.sponge_library(8),
-        "sponge.cu, 12 words": lambda: cuda_backend.sponge_library(12),
-        "microbench.cu": mb.library,
-    }
-    with ThreadPoolExecutor(len(builds) + 1) as pool:  # one compiler process per build, all at once
-        jobs = {name: pool.submit(fn) for name, fn in builds.items()}
-        packer = pool.submit(native.library)
-        built = {name: job.result() for name, job in jobs.items()}
-        packer.result()
-    build_s = time.perf_counter() - t
-    lib, sponge_lib = built["jive.cu, 8 words"], built["sponge.cu, 8 words"]
-    lib12, sponge_lib12 = built["jive.cu, 12 words"], built["sponge.cu, 12 words"]
-    for name, b in built.items():
-        print(f"build: {name}: nvcc {b.build_seconds if b.build_seconds is not None else 'not run (built earlier)'} "
-              f"s, {b.path.name}", flush=True)
-        for line in b.ptxas:
-            print(f"  {line}", flush=True)
-    print(f"builds and loads, all {len(builds) + 1} at once (with the host packer): {build_s:.2f} s", flush=True)
-
-    # 3 ---------------------------------------------------------------------
-    phase("3 kernel vs plain version")
-    cases = [("vesta", "anemoi_2_1", 2), ("vesta", "anemoi_4_3", 2), ("vesta", "anemoi_4_3", 4)]
+    # lanes held against the plain version: both ends of N_CHECK, the ragged last block among them
     lanes = torch.cat([torch.arange(N_PLAIN // 2), torch.arange(N_CHECK - (N_PLAIN - N_PLAIN // 2), N_CHECK)]).to(dev)
-    for field, iname, k in cases:
-        inst = get_instance(field, iname)
-        W, L = inst.width, inst.field.n_limbs
-        x = canonical_states(inst, N_CHECK).reshape(W * L, N_CHECK)
-        out = cuda_backend.jive(inst, k, x)
-        plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, k, x[:, lanes].contiguous()))
-        held(out[:, lanes], plain, f"{field}/{iname} k={k}")
-        if out.min() < 0 or out.max() >= 1 << 13:
-            fail(f"{field}/{iname} k={k}: limbs outside 13 bits")
-        print(f"  {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
-              f"({plain_ms / 1e3:.2f} s): identical", flush=True)
-    # the other 20-limb fields run the same instantiation with their own
-    # constants; their lanes go to the golden model, whose calls cost
-    # milliseconds where the plain version's cost seconds
-    cols = torch.cat([lanes[:N_GOLDEN_LANES // 2], lanes[-(N_GOLDEN_LANES // 2):]])
-    for field in FIELDS_20:
-        if field == "vesta":
-            continue
-        inst = get_instance(field, "anemoi_2_1")
-        states = canonical_states(inst, N_CHECK)
-        out = jive_compress_batch_fn(inst, 2, device=dev)(states)
-        if decode_states(inst, out[:, :, cols]) != [golden.jive_compress_k(inst, s, 2)
-                                                    for s in decode_states(inst, states[:, :, cols])]:
-            fail(f"{field}/anemoi_2_1: the kernel differs from the golden model")
-        print(f"  {field}/anemoi_2_1 k=2: {N_CHECK} lanes, {N_GOLDEN_LANES} (both ends) held against the golden "
-              f"model: identical", flush=True)
-
-    # 4 ---------------------------------------------------------------------
-    phase("4 SAGE vectors")
-
-    def sage_jive(fields) -> None:
-        for field in fields:
-            for iname in ("anemoi_2_1", "anemoi_4_3"):
-                inst = get_instance(field, iname)
-                vec = json.loads((ROOT / "tests" / "vectors" / f"{field}_{iname}.json").read_text())
-                for pair, k in zip(vec["jive"], (2, 4)):
-                    want = [[int(v) for v in out] for out in pair["output"]]
-                    states = encode_states(inst, [[int(v) for v in s] for s in pair["input"]], device=dev)
-                    got = decode_states(inst, jive_compress_batch_fn(inst, k, device=dev)(states))
-                    if got != want:
-                        fail(f"SAGE vector mismatch: {field}/{iname} k={k}")
-                print(f"  {field}/{iname}: {len(vec['jive'])} jive vectors exact", flush=True)
-
-    sage_jive(FIELDS_20)
-
-    # 5 ---------------------------------------------------------------------
-    phase("5 full size: Vesta anemoi_2_1")
-    inst = get_instance("vesta", "anemoi_2_1")
-    W, L = inst.width, inst.field.n_limbs
-    compress = jive_compress_batch_fn(inst, 2, device=dev)
-    tree = MerkleTree(inst, device=dev)
-    states = canonical_states(inst, N_FULL)
-    leaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
-    torch.cuda.synchronize()
-
-    cuda_backend.jive.launches = 0
-    digests = compress(states)
-    before_root = cuda_backend.jive.launches
-    root = tree.root(leaves)
-    torch.cuda.synchronize()
-    jive_launches = launches = cuda_backend.jive.launches
-    root_launches = launches - before_root
-    print(f"  main path: Jive over {N_FULL} states and a {N_FULL}-leaf root: {launches} kernel launches "
-          f"({root_launches} for the root)", flush=True)
-    if launches == 0:
-        fail("the main path launched no kernel")
-    if root_launches != tree.num_levels(N_FULL):
-        fail(f"the root took {root_launches} launches for {tree.num_levels(N_FULL)} levels")
-    if tuple(digests.shape) != (1, L, N_FULL) or tuple(root.shape) != (L, 1):
-        fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
-
-    jive_ms = ms = mb.event_ms(lambda: compress(states), REPS)
-    print(f"  Jive 2-to-1, {N_FULL} states: {ms:.3f} ms per call, {ms * 1e3 / N_FULL:.4f} us per hash, "
-          f"{N_FULL / (ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)", flush=True)
-
-    sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
-    xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
-    jive_plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, 2, xs))
-    held(digests.reshape(L, N_FULL)[:, sample], plain, "2^20 Jive, sampled lanes")
-    print(f"  {N_SAMPLE} sampled lanes held against the plain version ({jive_plain_ms:.1f} ms): identical",
-          flush=True)
-
-    root_ms, root2 = host_time_ms(lambda: tree.root(leaves))
-    held(root2, root, "2^20 root, repeated")
-    print(f"  Merkle root over {N_FULL} leaves: {root_ms:.3f} ms ({smi}; host clock, synchronized)", flush=True)
-
-    # the root's levels again, with the call tree.root makes for each; up to
-    # N_SAMPLE columns of every level (all of the small ones) go to the plain
-    # version in one call, whose cost is its launch count, not its lanes
-    level, ins, outs = leaves, [], []
-    while level.shape[1] > 1:
-        x = level_states(level, 2)
-        level = cuda_backend.jive(inst, 2, x)
-        cols = torch.from_numpy(np.sort(rng.choice(x.shape[1], min(x.shape[1], N_SAMPLE), replace=False))).to(dev)
-        ins.append(x[:, cols])
-        outs.append(level[:, cols])
-    held(level, root, "2^20 root, level by level")
-    plain_levels = cuda_backend.jive_plain(inst, 2, torch.cat(ins, 1).contiguous())
-    held(torch.cat(outs, 1), plain_levels, "2^20 root's levels, sampled columns")
-    print(f"  {sum(t.shape[1] for t in ins)} columns from all {len(ins)} levels of the {N_FULL}-leaf root "
-          f"held against the plain version: identical", flush=True)
-
-    small = leaves[:, :SMALL_TREE].contiguous()
-    level = small
-    while level.shape[1] > 1:
-        level = cuda_backend.jive_plain(inst, 2, level_states(level, 2))
-    held(tree.root(small), level, "2^10-leaf root")
-    print(f"  {SMALL_TREE}-leaf root held against the plain version's: identical", flush=True)
 
     def bound(inst, n_perms: int, n_bytes: int) -> dict:
         """The least time for n_perms permutations of `inst` that move
@@ -405,30 +302,18 @@ def main() -> int:
         return torch.from_numpy(random_canonical(inst.field, (rows, n), rng).transpose(1, 0, 2).copy()) \
             .reshape(rows * inst.field.n_limbs, n).to(dev)
 
-    # 6 ---------------------------------------------------------------------
-    phase("6 permutation and sponge kernels vs plain version")
-    plain_times = {}
-    for iname in ("anemoi_2_1", "anemoi_4_3"):
-        inst = get_instance("vesta", iname)
-        x = canonical_rows(inst, inst.width, N_CHECK)
-        out = cuda_backend.permutation(inst, x)
-        plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, lanes].contiguous()))
-        plain_times[("permutation", iname)] = plain_ms
-        held(out[:, lanes], plain, f"vesta/{iname} permutation", "permutation")
-        print(f"  permutation, vesta/{iname}: {N_CHECK} states, {N_PLAIN} held against the plain version "
-              f"({plain_ms / 1e3:.2f} s): identical", flush=True)
-    for iname, E in (("anemoi_4_3", 3), ("anemoi_4_3", 4), ("anemoi_2_1", 2)):
-        inst = get_instance("vesta", iname)
-        m = canonical_rows(inst, E, N_SPONGE_PLAIN)
-        out = cuda_backend.sponge(inst, E, m)
-        plain_ms, plain = host_time_ms(lambda: cuda_backend.sponge_plain(inst, E, m))
-        plain_times[("sponge", iname, E)] = plain_ms
-        held(out, plain, f"vesta/{iname} sponge E={E}", "sponge")
-        print(f"  sponge, vesta/{iname}, E={E}: {N_SPONGE_PLAIN} messages held against the plain version "
-              f"({plain_ms / 1e3:.2f} s): identical", flush=True)
-
-    # 7 ---------------------------------------------------------------------
-    phase("7 SAGE sponge vectors and the hello-world digest, through .batch")
+    def sage_jive(fields) -> None:
+        for field in fields:
+            for iname in ("anemoi_2_1", "anemoi_4_3"):
+                inst = get_instance(field, iname)
+                vec = json.loads((ROOT / "tests" / "vectors" / f"{field}_{iname}.json").read_text())
+                for pair, k in zip(vec["jive"], (2, 4)):
+                    want = [[int(v) for v in out] for out in pair["output"]]
+                    states = encode_states(inst, [[int(v) for v in s] for s in pair["input"]], device=dev)
+                    got = decode_states(inst, jive_compress_batch_fn(inst, k, device=dev)(states))
+                    if got != want:
+                        fail(f"SAGE vector mismatch: {field}/{iname} k={k}")
+                print(f"  {field}/{iname}: {len(vec['jive'])} jive vectors exact", flush=True)
 
     def sage_sponge(fields) -> None:
         for field in fields:
@@ -448,428 +333,649 @@ def main() -> int:
                 print(f"  {field}/{iname}: {len(vec['hash_field']['input'])} hash_field and {len(data)} "
                       f"hash_bytes vectors exact", flush=True)
 
-    sage_sponge(FIELDS_20)
-    two = att.vesta.anemoi_2_1
-    hello = torch.from_numpy(two.batch.hash_bytes([b"hello world"])).to(dev)
-    hello_hex = digests_to_bytes(two.params, digest_export_fn(two.params)(hello))[0].hex()
-    if hello_hex != HELLO_WORLD:
-        fail(f"vesta/anemoi_2_1 digest of b'hello world' is {hello_hex}, not {HELLO_WORLD}")
-    print(f"  vesta/anemoi_2_1 hash_bytes(b'hello world') -> export -> bytes: {hello_hex}", flush=True)
+    # 1 ---------------------------------------------------------------------
+    if run(1):
+        phase("1 device")
+        kind = torch.cuda.get_device_name(0)
+        smi = nvidia_smi("name,power.limit")
+        props = torch.cuda.get_device_properties(0)
+        max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+        print(f"device: {kind}, {props.multi_processor_count} SMs, max SM clock {max_sm_mhz:.0f} MHz, "
+              f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        print(smi, flush=True)
+        imad_per_s = props.multi_processor_count * IMAD_PER_CLOCK_PER_SM * max_sm_mhz * 1e6
+
+    # 2 ---------------------------------------------------------------------
+    if run(2):
+        phase("2 build")
+        t = time.perf_counter()
+        builds = {
+            "jive.cu, 8 words": lambda: cuda_backend.library(8),
+            "jive.cu, 12 words": lambda: cuda_backend.library(12),
+            "sponge.cu, 8 words": lambda: cuda_backend.sponge_library(8),
+            "sponge.cu, 12 words": lambda: cuda_backend.sponge_library(12),
+            "microbench.cu": mb.library,
+        }
+        with ThreadPoolExecutor(len(builds) + 1) as pool:  # one compiler process per build, all at once
+            jobs = {name: pool.submit(fn) for name, fn in builds.items()}
+            packer = pool.submit(native.library)
+            built = {name: job.result() for name, job in jobs.items()}
+            packer.result()
+        build_s = time.perf_counter() - t
+        lib, sponge_lib = built["jive.cu, 8 words"], built["sponge.cu, 8 words"]
+        lib12, sponge_lib12 = built["jive.cu, 12 words"], built["sponge.cu, 12 words"]
+        for name, b in built.items():
+            print(f"build: {name}: nvcc {b.build_seconds if b.build_seconds is not None else 'not run (built earlier)'} "
+                  f"s, {b.path.name}", flush=True)
+            for line in b.ptxas:
+                print(f"  {line}", flush=True)
+        print(f"builds and loads, all {len(builds) + 1} at once (with the host packer): {build_s:.2f} s", flush=True)
+        sponge_lanes = sponge_lib.cdll.anemoi_sponge_lanes()
+        print(f"kernels by ptxas (registers, spill store and load bytes) and SASS (instructions, local-memory "
+              f"loads and stores, shuffles, votes, IMADs; cuobjdump -sass); the sponge runs {sponge_lanes} lanes "
+              f"per message:", flush=True)
+        for words, libs in ((8, (lib, sponge_lib)), (12, (lib12, sponge_lib12))):
+            for b in libs:
+                counts = sass.kernel_counts(b.path)
+                for name, (regs, st, ld) in sorted(sass.ptxas_table(b.ptxas).items()):
+                    was = PR7_REGISTERS.get((words, name))
+                    c = counts.get(name, {})
+                    print(f"  {words} words, {name}: {regs} registers, spills {st}/{ld} bytes"
+                          + ("" if was is None else f" (PR 7: {was}, {'the same' if was == regs else 'CHANGED'})")
+                          + f"; SASS {c.get('instructions')} instructions, LDL {c.get('LDL')}, STL {c.get('STL')}, "
+                          f"SHFL {c.get('SHFL')}, VOTE {c.get('VOTE')}, IMAD {c.get('IMAD')}", flush=True)
+                    if name.startswith("sponge_kernel"):
+                        lp = c["loop"]
+                        print(f"    its innermost loop (a ladder trip: one {sponge_lanes}-lane product of each "
+                              f"column): {lp['instructions']} instructions, SHFL {lp['SHFL']}, VOTE {lp['VOTE']}, "
+                              f"IMAD {lp['IMAD']}", flush=True)
+
+    # 3 ---------------------------------------------------------------------
+    if run(3):
+        phase("3 kernel vs plain version")
+        cases = [("vesta", "anemoi_2_1", 2), ("vesta", "anemoi_4_3", 2), ("vesta", "anemoi_4_3", 4)]
+        for field, iname, k in cases:
+            inst = get_instance(field, iname)
+            W, L = inst.width, inst.field.n_limbs
+            x = canonical_states(inst, N_CHECK).reshape(W * L, N_CHECK)
+            out = cuda_backend.jive(inst, k, x)
+            plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, k, x[:, lanes].contiguous()))
+            held(out[:, lanes], plain, f"{field}/{iname} k={k}")
+            if out.min() < 0 or out.max() >= 1 << 13:
+                fail(f"{field}/{iname} k={k}: limbs outside 13 bits")
+            print(f"  {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
+                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+        # the other 20-limb fields run the same instantiation with their own
+        # constants; their lanes go to the golden model, whose calls cost
+        # milliseconds where the plain version's cost seconds
+        cols = torch.cat([lanes[:N_GOLDEN_LANES // 2], lanes[-(N_GOLDEN_LANES // 2):]])
+        for field in FIELDS_20:
+            if field == "vesta":
+                continue
+            inst = get_instance(field, "anemoi_2_1")
+            states = canonical_states(inst, N_CHECK)
+            out = jive_compress_batch_fn(inst, 2, device=dev)(states)
+            if decode_states(inst, out[:, :, cols]) != [golden.jive_compress_k(inst, s, 2)
+                                                        for s in decode_states(inst, states[:, :, cols])]:
+                fail(f"{field}/anemoi_2_1: the kernel differs from the golden model")
+            print(f"  {field}/anemoi_2_1 k=2: {N_CHECK} lanes, {N_GOLDEN_LANES} (both ends) held against the golden "
+                  f"model: identical", flush=True)
+
+    # 4 ---------------------------------------------------------------------
+    if run(4):
+        phase("4 SAGE vectors")
+
+        sage_jive(FIELDS_20)
+
+    # 5 ---------------------------------------------------------------------
+    if run(5):
+        phase("5 full size: Vesta anemoi_2_1")
+        inst = get_instance("vesta", "anemoi_2_1")
+        W, L = inst.width, inst.field.n_limbs
+        compress = jive_compress_batch_fn(inst, 2, device=dev)
+        tree = MerkleTree(inst, device=dev)
+        states = canonical_states(inst, N_FULL)
+        leaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
+        torch.cuda.synchronize()
+
+        cuda_backend.jive.launches = 0
+        digests = compress(states)
+        before_root = cuda_backend.jive.launches
+        root = tree.root(leaves)
+        torch.cuda.synchronize()
+        jive_launches = launches = cuda_backend.jive.launches
+        root_launches = launches - before_root
+        print(f"  main path: Jive over {N_FULL} states and a {N_FULL}-leaf root: {launches} kernel launches "
+              f"({root_launches} for the root)", flush=True)
+        if launches == 0:
+            fail("the main path launched no kernel")
+        if root_launches != tree.num_levels(N_FULL):
+            fail(f"the root took {root_launches} launches for {tree.num_levels(N_FULL)} levels")
+        if tuple(digests.shape) != (1, L, N_FULL) or tuple(root.shape) != (L, 1):
+            fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
+
+        jive_ms = ms = mb.event_ms(lambda: compress(states), REPS)
+        print(f"  Jive 2-to-1, {N_FULL} states: {ms:.3f} ms per call, {ms * 1e3 / N_FULL:.4f} us per hash, "
+              f"{N_FULL / (ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)", flush=True)
+
+        sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
+        xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
+        jive_plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, 2, xs))
+        held(digests.reshape(L, N_FULL)[:, sample], plain, "2^20 Jive, sampled lanes")
+        print(f"  {N_SAMPLE} sampled lanes held against the plain version ({jive_plain_ms:.1f} ms): identical",
+              flush=True)
+
+        root_ms, root2 = host_time_ms(lambda: tree.root(leaves))
+        held(root2, root, "2^20 root, repeated")
+        print(f"  Merkle root over {N_FULL} leaves: {root_ms:.3f} ms ({smi}; host clock, synchronized)", flush=True)
+
+        # the root's levels again, with the call tree.root makes for each; up to
+        # N_SAMPLE columns of every level (all of the small ones) go to the plain
+        # version in one call, whose cost is its launch count, not its lanes
+        level, ins, outs = leaves, [], []
+        while level.shape[1] > 1:
+            x = level_states(level, 2)
+            level = cuda_backend.jive(inst, 2, x)
+            cols = torch.from_numpy(np.sort(rng.choice(x.shape[1], min(x.shape[1], N_SAMPLE), replace=False))).to(dev)
+            ins.append(x[:, cols])
+            outs.append(level[:, cols])
+        held(level, root, "2^20 root, level by level")
+        plain_levels = cuda_backend.jive_plain(inst, 2, torch.cat(ins, 1).contiguous())
+        held(torch.cat(outs, 1), plain_levels, "2^20 root's levels, sampled columns")
+        print(f"  {sum(t.shape[1] for t in ins)} columns from all {len(ins)} levels of the {N_FULL}-leaf root "
+              f"held against the plain version: identical", flush=True)
+
+        small = leaves[:, :SMALL_TREE].contiguous()
+        level = small
+        while level.shape[1] > 1:
+            level = cuda_backend.jive_plain(inst, 2, level_states(level, 2))
+        held(tree.root(small), level, "2^10-leaf root")
+        print(f"  {SMALL_TREE}-leaf root held against the plain version's: identical", flush=True)
+
+    # 6 ---------------------------------------------------------------------
+    if run(6):
+        phase("6 permutation and sponge kernels vs plain version")
+        plain_times = {}
+        for iname in ("anemoi_2_1", "anemoi_4_3"):
+            inst = get_instance("vesta", iname)
+            x = canonical_rows(inst, inst.width, N_CHECK)
+            out = cuda_backend.permutation(inst, x)
+            plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, lanes].contiguous()))
+            plain_times[("permutation", iname)] = plain_ms
+            held(out[:, lanes], plain, f"vesta/{iname} permutation", "permutation")
+            print(f"  permutation, vesta/{iname}: {N_CHECK} states, {N_PLAIN} held against the plain version "
+                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+        # 1,024 messages all held; then 4,099, which fill neither the last warp (8 messages) nor the last
+        # block (32), with 257 held at both ends
+        for iname, E, n in (("anemoi_4_3", 3, N_SPONGE_PLAIN), ("anemoi_4_3", 4, N_CHECK), ("anemoi_2_1", 2, N_CHECK)):
+            inst = get_instance("vesta", iname)
+            m = canonical_rows(inst, E, n)
+            out = cuda_backend.sponge(inst, E, m)
+            cols = lanes if n == N_CHECK else torch.arange(n, device=dev)
+            plain_ms, plain = host_time_ms(lambda: cuda_backend.sponge_plain(inst, E, m[:, cols].contiguous()))
+            plain_times[("sponge", iname, E)] = plain_ms
+            held(out[:, cols], plain, f"vesta/{iname} sponge E={E}", "sponge")
+            print(f"  sponge, vesta/{iname}, E={E}: {n} messages, {len(cols)} held against the plain version "
+                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+
+    # 7 ---------------------------------------------------------------------
+    if run(7):
+        phase("7 SAGE sponge vectors and the hello-world digest, through .batch")
+
+        sage_sponge(FIELDS_20)
+        two = att.vesta.anemoi_2_1
+        hello = torch.from_numpy(two.batch.hash_bytes([b"hello world"])).to(dev)
+        hello_hex = digests_to_bytes(two.params, digest_export_fn(two.params)(hello))[0].hex()
+        if hello_hex != HELLO_WORLD:
+            fail(f"vesta/anemoi_2_1 digest of b'hello world' is {hello_hex}, not {HELLO_WORLD}")
+        print(f"  vesta/anemoi_2_1 hash_bytes(b'hello world') -> export -> bytes: {hello_hex}", flush=True)
 
     # 8 ---------------------------------------------------------------------
-    phase(f"8 full size: the sponge over {N_MSGS} messages of {MSG_BYTES} bytes")
-    objs = {iname: att.instance("vesta", iname) for iname in ("anemoi_4_3", "anemoi_2_1")}
-    msgs = [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
-    E = native.num_elements(MSG_BYTES, objs["anemoi_4_3"].params.field)
-    rate43 = objs["anemoi_4_3"].params.rate
-    blocks = E // rate43
-    chunks = [blocks // 4 + (i < blocks % 4) for i in range(4)]  # rate-blocks per chunk
-    torch.cuda.synchronize()
+    if run(8):
+        phase(f"8 full size: the sponge over {N_MSGS} messages of {MSG_BYTES} bytes")
+        objs = {iname: att.instance("vesta", iname) for iname in ("anemoi_4_3", "anemoi_2_1")}
+        msgs = [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
+        E = native.num_elements(MSG_BYTES, objs["anemoi_4_3"].params.field)
+        rate43 = objs["anemoi_4_3"].params.rate
+        L = objs["anemoi_4_3"].params.field.n_limbs
+        blocks = E // rate43
+        chunks = [blocks // 4 + (i < blocks % 4) for i in range(4)]  # rate-blocks per chunk
+        torch.cuda.synchronize()
 
-    for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
-        counter.launches = 0
-    first_ms, full = {}, {}
-    for iname, obj in objs.items():
-        first_ms[iname], full[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
-    sponge_launches = cuda_backend.sponge.launches
-    stream = BatchedSponge(objs["anemoi_4_3"].params, N_MSGS, device=dev)
-    mont = mont_messages(objs["anemoi_4_3"].params, pack_messages(objs["anemoi_4_3"].params, msgs), dev)
-    start = 0
-    for n in chunks:
-        stream.absorb(mont[start:start + n * rate43])
-        start += n * rate43
-    streamed = stream.finalize(mont[start:])
-    torch.cuda.synchronize()
-    perm_launches = cuda_backend.permutation.launches
-    print(f"  main path: hash_bytes for vesta/anemoi_4_3 and vesta/anemoi_2_1 over {N_MSGS} x {MSG_BYTES} bytes "
-          f"({E} elements each), BatchedSponge over the 4_3 messages in chunks of {chunks} rate-blocks and a "
-          f"tail of {E - start}: {sponge_launches} sponge launches, {perm_launches} permutation launches, "
-          f"{cuda_backend.jive.launches} Jive launches", flush=True)
-    if sponge_launches != len(objs):
-        fail(f"hash_bytes took {sponge_launches} sponge launches for {len(objs)} calls")
-    if perm_launches != blocks + (E % rate43 > 0):
-        fail(f"BatchedSponge took {perm_launches} permutation launches for {blocks} blocks and a tail")
-    for iname, out in full.items():
-        if out.shape != (1, L, N_MSGS):
-            fail(f"{iname}: digests of shape {out.shape}")
-    held(streamed.cpu(), torch.from_numpy(full["anemoi_4_3"]), "BatchedSponge against hash_bytes", "permutation")
-    print("  BatchedSponge digests equal hash_bytes's", flush=True)
-
-    sponge_ms, sponge_bound, e2e_ms = {}, {}, {}
-    for iname, obj in objs.items():
-        inst = obj.params
-        e2e_ms[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
-        pack_ms = time.perf_counter()
-        packed = pack_messages(inst, msgs)
-        pack_ms = (time.perf_counter() - pack_ms) * 1e3
-        x = mont_messages(inst, packed, dev).reshape(E * L, N_MSGS)
-        ms = sponge_ms[iname] = mb.event_ms(lambda: cuda_backend.sponge(inst, E, x), SPONGE_REPS)
-        perms = -(-E // inst.rate)
-        b = sponge_bound[iname] = bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
-        print(f"  vesta/{iname}: host packing {pack_ms:.1f} ms; sponge kernel {ms:.3f} ms ({SPONGE_REPS} calls "
-              f"after a warm-up, CUDA events; {perms} permutations a message); end to end {e2e_ms[iname]:.1f} ms "
-              f"(host clock around .batch.hash_bytes, synchronized; {first_ms[iname]:.1f} ms in the main-path "
-              f"run, the first); {N_MSGS / (e2e_ms[iname] / 1e3):.1f} msgs/s, "
-              f"{N_MSGS * MSG_BYTES / (e2e_ms[iname] / 1e3) / 1e6:.3f} MB/s end to end; kernel alone "
-              f"{N_MSGS / (ms / 1e3):.1f} msgs/s ({smi})", flush=True)
-        show_bound(f"vesta/{iname} sponge, {N_MSGS} messages", b, ms)
-
-    # the golden model over sampled messages, in one worker process per core
-    # (a 10 KB message takes it 0.5 to 1 s)
-    picks = sorted(rng.choice(N_MSGS, N_GOLDEN, replace=False).tolist())
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
+            counter.launches = 0
+        first_ms, full = {}, {}
+        for iname, obj in objs.items():
+            first_ms[iname], full[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
+        sponge_launches = cuda_backend.sponge.launches
+        stream = BatchedSponge(objs["anemoi_4_3"].params, N_MSGS, device=dev)
+        mont = mont_messages(objs["anemoi_4_3"].params, pack_messages(objs["anemoi_4_3"].params, msgs), dev)
+        start = 0
+        for n in chunks:
+            stream.absorb(mont[start:start + n * rate43])
+            start += n * rate43
+        streamed = stream.finalize(mont[start:])
+        torch.cuda.synchronize()
+        perm_launches = cuda_backend.permutation.launches
+        print(f"  main path: hash_bytes for vesta/anemoi_4_3 and vesta/anemoi_2_1 over {N_MSGS} x {MSG_BYTES} bytes "
+              f"({E} elements each), BatchedSponge over the 4_3 messages in chunks of {chunks} rate-blocks and a "
+              f"tail of {E - start}: {sponge_launches} sponge launches, {perm_launches} permutation launches, "
+              f"{cuda_backend.jive.launches} Jive launches", flush=True)
+        if sponge_launches != len(objs):
+            fail(f"hash_bytes took {sponge_launches} sponge launches for {len(objs)} calls")
+        if perm_launches != blocks + (E % rate43 > 0):
+            fail(f"BatchedSponge took {perm_launches} permutation launches for {blocks} blocks and a tail")
         for iname, out in full.items():
-            want = pool.map(golden_hash_bytes, [("vesta", iname, msgs[i]) for i in picks])
-            got = decode_states(objs[iname].params, out[:, :, picks])
-            if got != want:
-                fail(f"vesta/{iname}: sampled 10 KB digests differ from the golden model")
-            print(f"  vesta/{iname}: {N_GOLDEN} sampled messages held against the golden model: identical", flush=True)
+            if out.shape != (1, L, N_MSGS):
+                fail(f"{iname}: digests of shape {out.shape}")
+        held(streamed.cpu(), torch.from_numpy(full["anemoi_4_3"]), "BatchedSponge against hash_bytes", "permutation")
+        print("  BatchedSponge digests equal hash_bytes's", flush=True)
 
-    # the card filled: 65,536 Vesta 4_3 messages made on the card, kernel alone
-    inst = objs["anemoi_4_3"].params
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    big = torch.randint(0, 1 << 13, (E, L, N_MSGS_FILL), generator=gen, device=dev, dtype=torch.int32)
-    top = L - 1  # clear every bit from 2^(bits(p) - 1) up: canonical values
-    big[:, top] &= (1 << (inst.field.p.bit_length() - 1 - 13 * top)) - 1
-    big = big.reshape(E * L, N_MSGS_FILL)
-    fill_ms = mb.event_ms(lambda: cuda_backend.sponge(inst, E, big), 2)
-    fill_bound = bound(inst, N_MSGS_FILL * -(-E // inst.rate), N_MSGS_FILL * (E + 1) * L * 4)
-    print(f"  vesta/anemoi_4_3, {N_MSGS_FILL} messages made on the card: sponge kernel {fill_ms:.3f} ms "
-          f"(2 calls after a warm-up, CUDA events), {N_MSGS_FILL / (fill_ms / 1e3):.1f} msgs/s; at {N_MSGS} "
-          f"messages {N_MSGS / (sponge_ms['anemoi_4_3'] / 1e3):.1f} msgs/s ({smi})", flush=True)
-    show_bound(f"vesta/anemoi_4_3 sponge, {N_MSGS_FILL} messages", fill_bound, fill_ms)
-    fill_out = cuda_backend.sponge(inst, E, big)
-    cols = [0, 1, N_MSGS_FILL // 2, N_MSGS_FILL - 1]
-    elems = big.reshape(E, L, N_MSGS_FILL)[:, :, cols].cpu()
-    for j, col in enumerate(cols):
-        message = lo.decode_ints(elems[:, :, j].T.contiguous(), inst.field)
-        if lo.decode_ints(fill_out[:, col:col + 1], inst.field) != golden.hash_field(inst, message):
-            fail(f"65,536-message sponge: lane {col} differs from the golden model")
-    print(f"  lanes {cols} held against the golden model: identical", flush=True)
-    del big, fill_out
+        sponge_ms, sponge_bound, e2e_ms = {}, {}, {}
+        for iname, obj in objs.items():
+            inst = obj.params
+            e2e_ms[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
+            pack_ms = time.perf_counter()
+            packed = pack_messages(inst, msgs)
+            pack_ms = (time.perf_counter() - pack_ms) * 1e3
+            x = mont_messages(inst, packed, dev).reshape(E * L, N_MSGS)
+            ms = sponge_ms[iname] = mb.event_ms(lambda: cuda_backend.sponge(inst, E, x), SPONGE_REPS)
+            perms = -(-E // inst.rate)
+            b = sponge_bound[iname] = bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
+            print(f"  vesta/{iname}: host packing {pack_ms:.1f} ms; sponge kernel {ms:.3f} ms ({SPONGE_REPS} calls "
+                  f"after a warm-up, CUDA events; {perms} permutations a message); end to end {e2e_ms[iname]:.1f} ms "
+                  f"(host clock around .batch.hash_bytes, synchronized; {first_ms[iname]:.1f} ms in the main-path "
+                  f"run, the first); {N_MSGS / (e2e_ms[iname] / 1e3):.1f} msgs/s, "
+                  f"{N_MSGS * MSG_BYTES / (e2e_ms[iname] / 1e3) / 1e6:.3f} MB/s end to end; kernel alone "
+                  f"{N_MSGS / (ms / 1e3):.1f} msgs/s ({smi})", flush=True)
+            show_bound(f"vesta/{iname} sponge, {N_MSGS} messages", b, ms)
+            # fewer messages, the first of the same ones: flat times mean each warp runs alone on its
+            # scheduler and its own stream sets the pace
+            part = {}
+            for n in N_MSGS_PARTS:
+                xn = x[:, :n].contiguous()
+                part[n] = mb.event_ms(lambda: cuda_backend.sponge(inst, E, xn), 1)
+            print(f"  vesta/{iname}: sponge kernel over the first " + ", ".join(
+                f"{n} messages {t:.3f} ms" for n, t in part.items()) + f"; {N_MSGS}: {ms:.3f} ms", flush=True)
+            key = f"vesta/{iname}"
+            print(f"  vesta/{iname}, {sponge_lanes} lanes per message: kernel {ms:.3f} ms against PR 7's "
+                  f"{PR7_SPONGE_MS[key]} ms (one lane per message), {PR7_SPONGE_MS[key] / ms:.3f}x; end to end "
+                  f"{e2e_ms[iname]:.1f} ms" + (f" against PR 7's {PR7_E2E_MS[key]} ms" if key in PR7_E2E_MS else ""),
+                  flush=True)
 
-    # the permutation at the shape BatchedSponge gives it
-    x = canonical_rows(inst, inst.width, N_MSGS)
-    perm_ms = mb.event_ms(lambda: cuda_backend.permutation(inst, x), REPS)
-    perm_bound = bound(inst, N_MSGS, N_MSGS * 2 * inst.width * L * 4)
-    print(f"  permutation, vesta/anemoi_4_3, {N_MSGS} states: {perm_ms:.3f} ms ({REPS} calls after a warm-up, "
-          f"CUDA events)", flush=True)
-    show_bound(f"vesta/anemoi_4_3 permutation, {N_MSGS} states", perm_bound, perm_ms)
+        # the golden model over sampled messages, in one worker process per core
+        # (a 10 KB message takes it 0.5 to 1 s)
+        picks = sorted(rng.choice(N_MSGS, N_GOLDEN, replace=False).tolist())
+        with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+            for iname, out in full.items():
+                want = pool.map(golden_hash_bytes, [("vesta", iname, msgs[i]) for i in picks])
+                got = decode_states(objs[iname].params, out[:, :, picks])
+                if got != want:
+                    fail(f"vesta/{iname}: sampled 10 KB digests differ from the golden model")
+                print(f"  vesta/{iname}: {N_GOLDEN} sampled messages held against the golden model: identical", flush=True)
+
+        # the card filled: 65,536 Vesta 4_3 messages made on the card, kernel alone
+        inst = objs["anemoi_4_3"].params
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        big = torch.randint(0, 1 << 13, (E, L, N_MSGS_FILL), generator=gen, device=dev, dtype=torch.int32)
+        top = L - 1  # clear every bit from 2^(bits(p) - 1) up: canonical values
+        big[:, top] &= (1 << (inst.field.p.bit_length() - 1 - 13 * top)) - 1
+        big = big.reshape(E * L, N_MSGS_FILL)
+        fill_ms = mb.event_ms(lambda: cuda_backend.sponge(inst, E, big), 2)
+        fill_bound = bound(inst, N_MSGS_FILL * -(-E // inst.rate), N_MSGS_FILL * (E + 1) * L * 4)
+        print(f"  vesta/anemoi_4_3, {N_MSGS_FILL} messages made on the card: sponge kernel {fill_ms:.3f} ms "
+              f"(2 calls after a warm-up, CUDA events), {N_MSGS_FILL / (fill_ms / 1e3):.1f} msgs/s; at {N_MSGS} "
+              f"messages {N_MSGS / (sponge_ms['anemoi_4_3'] / 1e3):.1f} msgs/s ({smi})", flush=True)
+        show_bound(f"vesta/anemoi_4_3 sponge, {N_MSGS_FILL} messages", fill_bound, fill_ms)
+        was = PR7_SPONGE_MS["vesta/anemoi_4_3, 65536"]
+        print(f"  {N_MSGS_FILL} messages, {sponge_lanes} lanes per message: kernel {fill_ms:.3f} ms against PR 7's "
+              f"{was} ms (one lane per message), {was / fill_ms:.3f}x", flush=True)
+        fill_out = cuda_backend.sponge(inst, E, big)
+        cols = [0, 1, N_MSGS_FILL // 2, N_MSGS_FILL - 1]
+        elems = big.reshape(E, L, N_MSGS_FILL)[:, :, cols].cpu()
+        for j, col in enumerate(cols):
+            message = lo.decode_ints(elems[:, :, j].T.contiguous(), inst.field)
+            if lo.decode_ints(fill_out[:, col:col + 1], inst.field) != golden.hash_field(inst, message):
+                fail(f"65,536-message sponge: lane {col} differs from the golden model")
+        print(f"  lanes {cols} held against the golden model: identical", flush=True)
+        del big, fill_out
+
+        # the permutation at the shape BatchedSponge gives it
+        x = canonical_rows(inst, inst.width, N_MSGS)
+        perm_ms = mb.event_ms(lambda: cuda_backend.permutation(inst, x), REPS)
+        perm_bound = bound(inst, N_MSGS, N_MSGS * 2 * inst.width * L * 4)
+        print(f"  permutation, vesta/anemoi_4_3, {N_MSGS} states: {perm_ms:.3f} ms ({REPS} calls after a warm-up, "
+              f"CUDA events)", flush=True)
+        show_bound(f"vesta/anemoi_4_3 permutation, {N_MSGS} states", perm_bound, perm_ms)
 
     # 9 ---------------------------------------------------------------------
-    phase("9 the 12-word kernels vs plain version")
-    for field, iname, k in (("bls12_381", "anemoi_2_1", 2), ("bls12_381", "anemoi_4_3", 2),
-                            ("bls12_381", "anemoi_4_3", 4)):
-        inst = get_instance(field, iname)
-        W, L = inst.width, inst.field.n_limbs
-        x = canonical_rows(inst, W, N_CHECK)
-        out = cuda_backend.jive(inst, k, x)
-        plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, k, x[:, lanes].contiguous()))
-        held(out[:, lanes], plain, f"{field}/{iname} k={k}", "jive_w12")
-        print(f"  Jive, {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
-              f"({plain_ms / 1e3:.2f} s): identical", flush=True)
-    for iname in ("anemoi_2_1", "anemoi_4_3"):
-        inst = get_instance("bls12_377", iname)
-        x = canonical_rows(inst, inst.width, N_CHECK)
-        out = cuda_backend.permutation(inst, x)
-        plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, lanes].contiguous()))
-        plain_times[("permutation_w12", iname)] = plain_ms
-        held(out[:, lanes], plain, f"bls12_377/{iname} permutation", "permutation_w12")
-        print(f"  permutation, bls12_377/{iname}: {N_CHECK} states, {N_PLAIN} held against the plain version "
-              f"({plain_ms / 1e3:.2f} s): identical", flush=True)
-    for iname, E in (("anemoi_4_3", 3), ("anemoi_4_3", 4), ("anemoi_2_1", 2)):
-        inst = get_instance("bls12_381", iname)
-        m = canonical_rows(inst, E, N_CHECK)
-        out = cuda_backend.sponge(inst, E, m)
-        plain_ms, plain = host_time_ms(lambda: cuda_backend.sponge_plain(inst, E, m[:, lanes].contiguous()))
-        plain_times[("sponge_w12", iname, E)] = plain_ms
-        held(out[:, lanes], plain, f"bls12_381/{iname} sponge E={E}", "sponge_w12")
-        print(f"  sponge, bls12_381/{iname}, E={E}: {N_CHECK} messages, {N_PLAIN} held against the plain version "
-              f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+    if run(9):
+        phase("9 the 12-word kernels vs plain version")
+        for field, iname, k in (("bls12_381", "anemoi_2_1", 2), ("bls12_381", "anemoi_4_3", 2),
+                                ("bls12_381", "anemoi_4_3", 4)):
+            inst = get_instance(field, iname)
+            W, L = inst.width, inst.field.n_limbs
+            x = canonical_rows(inst, W, N_CHECK)
+            out = cuda_backend.jive(inst, k, x)
+            plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, k, x[:, lanes].contiguous()))
+            held(out[:, lanes], plain, f"{field}/{iname} k={k}", "jive_w12")
+            print(f"  Jive, {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
+                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+        for iname in ("anemoi_2_1", "anemoi_4_3"):
+            inst = get_instance("bls12_377", iname)
+            x = canonical_rows(inst, inst.width, N_CHECK)
+            out = cuda_backend.permutation(inst, x)
+            plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, lanes].contiguous()))
+            plain_times[("permutation_w12", iname)] = plain_ms
+            held(out[:, lanes], plain, f"bls12_377/{iname} permutation", "permutation_w12")
+            print(f"  permutation, bls12_377/{iname}: {N_CHECK} states, {N_PLAIN} held against the plain version "
+                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+        for iname, E in (("anemoi_4_3", 3), ("anemoi_4_3", 4), ("anemoi_2_1", 2)):
+            inst = get_instance("bls12_381", iname)
+            m = canonical_rows(inst, E, N_CHECK)
+            out = cuda_backend.sponge(inst, E, m)
+            plain_ms, plain = host_time_ms(lambda: cuda_backend.sponge_plain(inst, E, m[:, lanes].contiguous()))
+            plain_times[("sponge_w12", iname, E)] = plain_ms
+            held(out[:, lanes], plain, f"bls12_381/{iname} sponge E={E}", "sponge_w12")
+            print(f"  sponge, bls12_381/{iname}, E={E}: {N_CHECK} messages, {N_PLAIN} held against the plain version "
+                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
 
     # 10 --------------------------------------------------------------------
-    phase("10 SAGE vectors of the 30-limb fields, through .batch")
-    sage_jive(FIELDS_30)
-    sage_sponge(FIELDS_30)
+    if run(10):
+        phase("10 SAGE vectors of the 30-limb fields, through .batch")
+        sage_jive(FIELDS_30)
+        sage_sponge(FIELDS_30)
 
     # 11 --------------------------------------------------------------------
-    phase("11 full size: BLS12-381 anemoi_2_1")
-    inst = get_instance("bls12_381", "anemoi_2_1")
-    W, L = inst.width, inst.field.n_limbs
-    compress = jive_compress_batch_fn(inst, 2, device=dev)
-    tree = MerkleTree(inst, device=dev)
-    states = canonical_states(inst, N_FULL)
-    leaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
-    torch.cuda.synchronize()
+    if run(11):
+        phase("11 full size: BLS12-381 anemoi_2_1")
+        inst = get_instance("bls12_381", "anemoi_2_1")
+        W, L = inst.width, inst.field.n_limbs
+        compress = jive_compress_batch_fn(inst, 2, device=dev)
+        tree = MerkleTree(inst, device=dev)
+        states = canonical_states(inst, N_FULL)
+        leaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
+        torch.cuda.synchronize()
 
-    cuda_backend.jive.launches = 0
-    digests = compress(states)
-    before_root = cuda_backend.jive.launches
-    root = tree.root(leaves)
-    torch.cuda.synchronize()
-    jive12_launches = launches = cuda_backend.jive.launches
-    root_launches = launches - before_root
-    print(f"  main path: Jive over {N_FULL} states and a {N_FULL}-leaf root: {launches} kernel launches "
-          f"({root_launches} for the root)", flush=True)
-    if launches != 1 + tree.num_levels(N_FULL):
-        fail(f"the main path took {launches} launches, not 1 + {tree.num_levels(N_FULL)}")
-    if tuple(digests.shape) != (1, L, N_FULL) or tuple(root.shape) != (L, 1):
-        fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
+        cuda_backend.jive.launches = 0
+        digests = compress(states)
+        before_root = cuda_backend.jive.launches
+        root = tree.root(leaves)
+        torch.cuda.synchronize()
+        jive12_launches = launches = cuda_backend.jive.launches
+        root_launches = launches - before_root
+        print(f"  main path: Jive over {N_FULL} states and a {N_FULL}-leaf root: {launches} kernel launches "
+              f"({root_launches} for the root)", flush=True)
+        if launches != 1 + tree.num_levels(N_FULL):
+            fail(f"the main path took {launches} launches, not 1 + {tree.num_levels(N_FULL)}")
+        if tuple(digests.shape) != (1, L, N_FULL) or tuple(root.shape) != (L, 1):
+            fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
 
-    jive12_ms = mb.event_ms(lambda: compress(states), REPS)
-    print(f"  Jive 2-to-1, {N_FULL} states: {jive12_ms:.3f} ms per call, {jive12_ms * 1e3 / N_FULL:.4f} us per hash, "
-          f"{N_FULL / (jive12_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)",
-          flush=True)
-    sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
-    xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
-    jive12_plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, 2, xs))
-    held(digests.reshape(L, N_FULL)[:, sample], plain, "BLS12-381 2^20 Jive, sampled lanes", "jive_w12")
-    print(f"  {N_SAMPLE} sampled lanes held against the plain version ({jive12_plain_ms:.1f} ms): identical",
-          flush=True)
+        jive12_ms = mb.event_ms(lambda: compress(states), REPS)
+        print(f"  Jive 2-to-1, {N_FULL} states: {jive12_ms:.3f} ms per call, {jive12_ms * 1e3 / N_FULL:.4f} us per hash, "
+              f"{N_FULL / (jive12_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)",
+              flush=True)
+        sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
+        xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
+        jive12_plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, 2, xs))
+        held(digests.reshape(L, N_FULL)[:, sample], plain, "BLS12-381 2^20 Jive, sampled lanes", "jive_w12")
+        print(f"  {N_SAMPLE} sampled lanes held against the plain version ({jive12_plain_ms:.1f} ms): identical",
+              flush=True)
 
-    root12_ms, (root2, levels) = host_time_ms(lambda: tree.root(leaves, return_levels=True))
-    held(root2, root, "BLS12-381 2^20 root with return_levels", "jive_w12")
-    if len(levels) != tree.num_levels(N_FULL) + 1 or not torch.equal(levels[-1], root):
-        fail("return_levels: wrong levels")
-    print(f"  Merkle root over {N_FULL} leaves with return_levels: {root12_ms:.3f} ms ({smi}; host clock, "
-          f"synchronized); {len(levels)} levels on {levels[1].device}", flush=True)
-    picks = [0, N_FULL - 1] + sorted(rng.choice(np.arange(1, N_FULL - 1), N_PROOFS - 2, replace=False).tolist())
-    prove_ms = time.perf_counter()
-    for idx in picks:
-        path = tree.prove(levels, idx)
-        if len(path) != tree.num_levels(N_FULL) or not tree.verify(root, leaves[:, idx], idx, path):
-            fail(f"the proof of leaf {idx} does not verify")
-    prove_ms = (time.perf_counter() - prove_ms) * 1e3
-    path = tree.prove(levels, picks[2])
-    if tree.verify(root, leaves[:, picks[2] ^ 1], picks[2], path):
-        fail("a tampered leaf verified")
-    print(f"  prove and verify (golden model) for leaves {picks}: all verify ({prove_ms:.1f} ms); leaf "
-          f"{picks[2] ^ 1} in place of {picks[2]} fails", flush=True)
-    del states, digests, levels, root2
+        root12_ms, (root2, levels) = host_time_ms(lambda: tree.root(leaves, return_levels=True))
+        held(root2, root, "BLS12-381 2^20 root with return_levels", "jive_w12")
+        if len(levels) != tree.num_levels(N_FULL) + 1 or not torch.equal(levels[-1], root):
+            fail("return_levels: wrong levels")
+        print(f"  Merkle root over {N_FULL} leaves with return_levels: {root12_ms:.3f} ms ({smi}; host clock, "
+              f"synchronized); {len(levels)} levels on {levels[1].device}", flush=True)
+        picks = [0, N_FULL - 1] + sorted(rng.choice(np.arange(1, N_FULL - 1), N_PROOFS - 2, replace=False).tolist())
+        prove_ms = time.perf_counter()
+        for idx in picks:
+            path = tree.prove(levels, idx)
+            if len(path) != tree.num_levels(N_FULL) or not tree.verify(root, leaves[:, idx], idx, path):
+                fail(f"the proof of leaf {idx} does not verify")
+        prove_ms = (time.perf_counter() - prove_ms) * 1e3
+        path = tree.prove(levels, picks[2])
+        if tree.verify(root, leaves[:, picks[2] ^ 1], picks[2], path):
+            fail("a tampered leaf verified")
+        print(f"  prove and verify (golden model) for leaves {picks}: all verify ({prove_ms:.1f} ms); leaf "
+              f"{picks[2] ^ 1} in place of {picks[2]} fails", flush=True)
+        del states, digests, levels, root2
 
-    inst = get_instance("bls12_377", "anemoi_2_1")
-    states = canonical_states(inst, N_FULL)
-    compress = jive_compress_batch_fn(inst, 2, device=dev)
-    out = compress(states)
-    jive377_ms = mb.event_ms(lambda: compress(states), REPS)
-    jive377_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
-    print(f"  BLS12-377 Jive 2-to-1, {N_FULL} states: {jive377_ms:.3f} ms per call, "
-          f"{N_FULL / (jive377_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)",
-          flush=True)
-    show_bound(f"bls12_377/anemoi_2_1 Jive, {N_FULL} states", jive377_bound, jive377_ms)
-    cols = np.sort(rng.choice(N_FULL, N_GOLDEN_JIVE, replace=False))
-    ins = decode_states(inst, states[:, :, torch.from_numpy(cols).to(dev)])
-    got = decode_states(inst, out[:, :, torch.from_numpy(cols).to(dev)])
-    if got != [golden.jive_compress_k(inst, s, 2) for s in ins]:
-        fail("BLS12-377 2^20 Jive: sampled lanes differ from the golden model")
-    print(f"  {N_GOLDEN_JIVE} sampled lanes held against the golden model: identical", flush=True)
-    del states, out
+        inst = get_instance("bls12_377", "anemoi_2_1")
+        states = canonical_states(inst, N_FULL)
+        compress = jive_compress_batch_fn(inst, 2, device=dev)
+        out = compress(states)
+        jive377_ms = mb.event_ms(lambda: compress(states), REPS)
+        jive377_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
+        print(f"  BLS12-377 Jive 2-to-1, {N_FULL} states: {jive377_ms:.3f} ms per call, "
+              f"{N_FULL / (jive377_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)",
+              flush=True)
+        show_bound(f"bls12_377/anemoi_2_1 Jive, {N_FULL} states", jive377_bound, jive377_ms)
+        cols = np.sort(rng.choice(N_FULL, N_GOLDEN_JIVE, replace=False))
+        ins = decode_states(inst, states[:, :, torch.from_numpy(cols).to(dev)])
+        got = decode_states(inst, out[:, :, torch.from_numpy(cols).to(dev)])
+        if got != [golden.jive_compress_k(inst, s, 2) for s in ins]:
+            fail("BLS12-377 2^20 Jive: sampled lanes differ from the golden model")
+        print(f"  {N_GOLDEN_JIVE} sampled lanes held against the golden model: identical", flush=True)
+        del states, out
 
     # 12 --------------------------------------------------------------------
-    phase(f"12 checkpoints on the card: a {CKPT_TREE}-leaf BLS12-381 tree")
-    small = leaves[:, :CKPT_TREE].contiguous()
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "ckpt"
-        fresh_root, fresh = tree.root(small, return_levels=True, checkpoint_dir=ckpt)
-        n_files = len(list(ckpt.glob("level_*.npy")))
-        for lv in range(CKPT_KEEP + 1, tree.num_levels(CKPT_TREE) + 1):
-            (ckpt / f"level_{lv}.npy").unlink()
-        cuda_backend.jive.launches = 0
-        resumed_root, resumed = tree.root(small, return_levels=True, checkpoint_dir=ckpt)
-        resumed_launches = cuda_backend.jive.launches
-    held(resumed_root, fresh_root, "resumed root", "jive_w12")
-    if len(resumed) != len(fresh) or not all(torch.equal(a, b) for a, b in zip(resumed, fresh)):
-        fail("the resumed levels differ from the fresh ones")
-    if resumed_launches != tree.num_levels(CKPT_TREE) - CKPT_KEEP or resumed[1].device != dev:
-        fail(f"the resume took {resumed_launches} launches")
-    print(f"  {n_files} level files written; all but the lowest {CKPT_KEEP} deleted; the resume loaded those onto "
-          f"{resumed[1].device}, took {resumed_launches} launches, and its root and {len(resumed)} levels equal the "
-          f"fresh run's", flush=True)
-    del leaves, small
+    if run(12):
+        phase(f"12 checkpoints on the card: a {CKPT_TREE}-leaf BLS12-381 tree")
+        small = leaves[:, :CKPT_TREE].contiguous()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "ckpt"
+            fresh_root, fresh = tree.root(small, return_levels=True, checkpoint_dir=ckpt)
+            n_files = len(list(ckpt.glob("level_*.npy")))
+            for lv in range(CKPT_KEEP + 1, tree.num_levels(CKPT_TREE) + 1):
+                (ckpt / f"level_{lv}.npy").unlink()
+            cuda_backend.jive.launches = 0
+            resumed_root, resumed = tree.root(small, return_levels=True, checkpoint_dir=ckpt)
+            resumed_launches = cuda_backend.jive.launches
+        held(resumed_root, fresh_root, "resumed root", "jive_w12")
+        if len(resumed) != len(fresh) or not all(torch.equal(a, b) for a, b in zip(resumed, fresh)):
+            fail("the resumed levels differ from the fresh ones")
+        if resumed_launches != tree.num_levels(CKPT_TREE) - CKPT_KEEP or resumed[1].device != dev:
+            fail(f"the resume took {resumed_launches} launches")
+        print(f"  {n_files} level files written; all but the lowest {CKPT_KEEP} deleted; the resume loaded those onto "
+              f"{resumed[1].device}, took {resumed_launches} launches, and its root and {len(resumed)} levels equal the "
+              f"fresh run's", flush=True)
+        del leaves, small
 
     # 13 --------------------------------------------------------------------
-    phase(f"13 full size: the BLS12-381 anemoi_4_3 sponge over {N_MSGS} messages of {MSG_BYTES} bytes")
-    obj = att.bls12_381.anemoi_4_3
-    inst = obj.params
-    L, rate = inst.field.n_limbs, inst.rate
-    msgs = [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
-    E = native.num_elements(MSG_BYTES, inst.field)
-    blocks = E // rate
-    chunks = [blocks // 4 + (i < blocks % 4) for i in range(4)]
-    torch.cuda.synchronize()
+    if run(13):
+        phase(f"13 full size: the BLS12-381 anemoi_4_3 sponge over {N_MSGS} messages of {MSG_BYTES} bytes")
+        obj = att.bls12_381.anemoi_4_3
+        inst = obj.params
+        L, rate = inst.field.n_limbs, inst.rate
+        msgs = [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
+        E = native.num_elements(MSG_BYTES, inst.field)
+        blocks = E // rate
+        chunks = [blocks // 4 + (i < blocks % 4) for i in range(4)]
+        torch.cuda.synchronize()
 
-    for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
-        counter.launches = 0
-    first12_ms, full12 = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
-    sponge12_launches = cuda_backend.sponge.launches
-    stream = BatchedSponge(inst, N_MSGS, device=dev)
-    mont = mont_messages(inst, pack_messages(inst, msgs), dev)
-    start = 0
-    for n in chunks:
-        stream.absorb(mont[start:start + n * rate])
-        start += n * rate
-    streamed = stream.finalize(mont[start:])
-    torch.cuda.synchronize()
-    perm12_launches = cuda_backend.permutation.launches
-    print(f"  main path: hash_bytes for bls12_381/anemoi_4_3 over {N_MSGS} x {MSG_BYTES} bytes ({E} elements "
-          f"each), BatchedSponge in chunks of {chunks} rate-blocks and a tail of {E - start}: {sponge12_launches} "
-          f"sponge launch, {perm12_launches} permutation launches, {cuda_backend.jive.launches} Jive launches",
-          flush=True)
-    if sponge12_launches != 1:
-        fail(f"hash_bytes took {sponge12_launches} sponge launches for one call")
-    if perm12_launches != blocks + (E % rate > 0):
-        fail(f"BatchedSponge took {perm12_launches} permutation launches for {blocks} blocks and a tail")
-    if full12.shape != (1, L, N_MSGS):
-        fail(f"digests of shape {full12.shape}")
-    held(streamed.cpu(), torch.from_numpy(full12), "BLS12-381 BatchedSponge against hash_bytes", "permutation_w12")
-    print("  BatchedSponge digests equal hash_bytes's", flush=True)
-    del mont, stream
+        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
+            counter.launches = 0
+        first12_ms, full12 = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
+        sponge12_launches = cuda_backend.sponge.launches
+        stream = BatchedSponge(inst, N_MSGS, device=dev)
+        mont = mont_messages(inst, pack_messages(inst, msgs), dev)
+        start = 0
+        for n in chunks:
+            stream.absorb(mont[start:start + n * rate])
+            start += n * rate
+        streamed = stream.finalize(mont[start:])
+        torch.cuda.synchronize()
+        perm12_launches = cuda_backend.permutation.launches
+        print(f"  main path: hash_bytes for bls12_381/anemoi_4_3 over {N_MSGS} x {MSG_BYTES} bytes ({E} elements "
+              f"each), BatchedSponge in chunks of {chunks} rate-blocks and a tail of {E - start}: {sponge12_launches} "
+              f"sponge launch, {perm12_launches} permutation launches, {cuda_backend.jive.launches} Jive launches",
+              flush=True)
+        if sponge12_launches != 1:
+            fail(f"hash_bytes took {sponge12_launches} sponge launches for one call")
+        if perm12_launches != blocks + (E % rate > 0):
+            fail(f"BatchedSponge took {perm12_launches} permutation launches for {blocks} blocks and a tail")
+        if full12.shape != (1, L, N_MSGS):
+            fail(f"digests of shape {full12.shape}")
+        held(streamed.cpu(), torch.from_numpy(full12), "BLS12-381 BatchedSponge against hash_bytes", "permutation_w12")
+        print("  BatchedSponge digests equal hash_bytes's", flush=True)
+        del mont, stream
 
-    e2e12_ms = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
-    pack12_ms = time.perf_counter()
-    packed = pack_messages(inst, msgs)
-    pack12_ms = (time.perf_counter() - pack12_ms) * 1e3
-    x = mont_messages(inst, packed, dev).reshape(E * L, N_MSGS)
-    sponge12_ms = mb.event_ms(lambda: cuda_backend.sponge(inst, E, x), SPONGE_REPS)
-    perms = -(-E // rate)
-    sponge12_bound = bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
-    print(f"  bls12_381/anemoi_4_3: host packing {pack12_ms:.1f} ms; sponge kernel {sponge12_ms:.3f} ms "
-          f"({SPONGE_REPS} calls after a warm-up, CUDA events; {perms} permutations a message); end to end "
-          f"{e2e12_ms:.1f} ms (host clock around .batch.hash_bytes, synchronized; {first12_ms:.1f} ms in the "
-          f"main-path run, the first); {N_MSGS / (e2e12_ms / 1e3):.1f} msgs/s, "
-          f"{N_MSGS * MSG_BYTES / (e2e12_ms / 1e3) / 1e6:.3f} MB/s end to end; kernel alone "
-          f"{N_MSGS / (sponge12_ms / 1e3):.1f} msgs/s ({smi})", flush=True)
-    show_bound(f"bls12_381/anemoi_4_3 sponge, {N_MSGS} messages", sponge12_bound, sponge12_ms)
-    del x
+        e2e12_ms = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
+        pack12_ms = time.perf_counter()
+        packed = pack_messages(inst, msgs)
+        pack12_ms = (time.perf_counter() - pack12_ms) * 1e3
+        x = mont_messages(inst, packed, dev).reshape(E * L, N_MSGS)
+        sponge12_ms = mb.event_ms(lambda: cuda_backend.sponge(inst, E, x), SPONGE_REPS)
+        perms = -(-E // rate)
+        sponge12_bound = bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
+        print(f"  bls12_381/anemoi_4_3: host packing {pack12_ms:.1f} ms; sponge kernel {sponge12_ms:.3f} ms "
+              f"({SPONGE_REPS} calls after a warm-up, CUDA events; {perms} permutations a message); end to end "
+              f"{e2e12_ms:.1f} ms (host clock around .batch.hash_bytes, synchronized; {first12_ms:.1f} ms in the "
+              f"main-path run, the first); {N_MSGS / (e2e12_ms / 1e3):.1f} msgs/s, "
+              f"{N_MSGS * MSG_BYTES / (e2e12_ms / 1e3) / 1e6:.3f} MB/s end to end; kernel alone "
+              f"{N_MSGS / (sponge12_ms / 1e3):.1f} msgs/s ({smi})", flush=True)
+        show_bound(f"bls12_381/anemoi_4_3 sponge, {N_MSGS} messages", sponge12_bound, sponge12_ms)
+        was, was_e2e = PR7_SPONGE_MS["bls12_381/anemoi_4_3"], PR7_E2E_MS["bls12_381/anemoi_4_3"]
+        print(f"  bls12_381/anemoi_4_3, {sponge_lanes} lanes per message: kernel {sponge12_ms:.3f} ms against PR 7's "
+              f"{was} ms (one lane per message), {was / sponge12_ms:.3f}x; end to end {e2e12_ms:.1f} ms against "
+              f"PR 7's {was_e2e} ms", flush=True)
+        del x
 
-    picks = sorted(rng.choice(N_MSGS, N_GOLDEN, replace=False).tolist())
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        want = pool.map(golden_hash_bytes, [("bls12_381", "anemoi_4_3", msgs[i]) for i in picks])
-    if decode_states(inst, full12[:, :, picks]) != want:
-        fail("bls12_381/anemoi_4_3: sampled 10 KB digests differ from the golden model")
-    print(f"  {N_GOLDEN} sampled messages held against the golden model: identical", flush=True)
+        picks = sorted(rng.choice(N_MSGS, N_GOLDEN, replace=False).tolist())
+        with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+            want = pool.map(golden_hash_bytes, [("bls12_381", "anemoi_4_3", msgs[i]) for i in picks])
+        if decode_states(inst, full12[:, :, picks]) != want:
+            fail("bls12_381/anemoi_4_3: sampled 10 KB digests differ from the golden model")
+        print(f"  {N_GOLDEN} sampled messages held against the golden model: identical", flush=True)
 
-    # the permutation at the shape BatchedSponge gives it
-    x = canonical_rows(inst, inst.width, N_MSGS)
-    perm12_ms = mb.event_ms(lambda: cuda_backend.permutation(inst, x), REPS)
-    perm12_bound = bound(inst, N_MSGS, N_MSGS * 2 * inst.width * L * 4)
-    print(f"  permutation, bls12_381/anemoi_4_3, {N_MSGS} states: {perm12_ms:.3f} ms ({REPS} calls after a "
-          f"warm-up, CUDA events)", flush=True)
-    show_bound(f"bls12_381/anemoi_4_3 permutation, {N_MSGS} states", perm12_bound, perm12_ms)
+        # the permutation at the shape BatchedSponge gives it
+        x = canonical_rows(inst, inst.width, N_MSGS)
+        perm12_ms = mb.event_ms(lambda: cuda_backend.permutation(inst, x), REPS)
+        perm12_bound = bound(inst, N_MSGS, N_MSGS * 2 * inst.width * L * 4)
+        print(f"  permutation, bls12_381/anemoi_4_3, {N_MSGS} states: {perm12_ms:.3f} ms ({REPS} calls after a "
+              f"warm-up, CUDA events)", flush=True)
+        show_bound(f"bls12_381/anemoi_4_3 permutation, {N_MSGS} states", perm12_bound, perm12_ms)
 
     # 14 --------------------------------------------------------------------
-    phase("14 microbenchmarks")
-    sms = props.multi_processor_count
-    mb.sqr_chain.launches = mb.mad_loop.launches = 0
-    chain, chain_plain_ms = {}, {}
-    for field in ("vesta", "bls12_381"):
-        fp = get_instance(field, "anemoi_2_1").field
-        mb.check_chain(field, N_PLAIN, dev, seed=args.seed)
-        x = torch.from_numpy(random_canonical(fp, (8,), rng)).to(dev)
-        chain_plain_ms[field], plain = host_time_ms(lambda: mb.sqr_chain_plain(fp, x, 8))
-        held(mb.sqr_chain(fp, x, 8), plain, f"{field} squaring chain", "sqr_chain")
-        c = chain[field] = mb.measure_chain(field, MB_LANES, *CHAIN_TRIPS, MB_REPS, dev, seed=args.seed)
-        print(f"  squaring chain, {field} ({c['words']} words): 8-deep chain exact on {N_PLAIN} lanes against "
-              f"Python ints, and on 8 lanes against the plain version ({chain_plain_ms[field]:.1f} ms); "
-              f"{c['lanes']} lanes, {c['n1']} and {c['n2']} squarings: {c['ms1']:.4f} and {c['ms2']:.4f} ms; "
-              f"{c['ns_per_sqr_per_lane']:.6f} ns per squaring per lane, {c['sqr_per_s']:.6g} squarings/s, "
-              f"{c['imads_per_s']:.6g} IMADs/s at {c['imads_per_sqr']} a squaring "
-              f"({c['imads_per_s'] / (sms * max_sm_mhz * 1e6):.2f} per clock per SM at {max_sm_mhz:.0f} MHz; "
-              f"{smi})", flush=True)
-    x = torch.from_numpy(np.random.default_rng(args.seed).integers(1, 1000, size=(20, 512), dtype=np.int32))
-    mad_plain_ms, plain = host_time_ms(lambda: mb.mad_loop_plain(x.to(dev), 100))
-    held(mb.mad_loop(x.to(dev), 100), plain, "multiply-add loop", "mad_loop")
-    print(f"  multiply-add loop: 10,240 elements x 100 iterations held against the plain version "
-          f"({mad_plain_ms:.1f} ms): identical", flush=True)
-    mad = {}
-    for shape in (*mb.MAD_SHAPES, mb.fill_shape(sms)):
-        r = mad[shape] = mb.measure_mad(shape, *MAD_TRIPS, MB_REPS, dev, sms=sms, clock_mhz=max_sm_mhz, seed=args.seed)
-        print(f"  multiply-add loop, shape {shape}: {r['elements']} elements on {r['busy_sms']} SMs; "
-              f"{r['ns_per_iter']:.4f} ns per iteration, {r['ns_per_elem_iter']:.6f} ns per element-iteration, "
-              f"{r['iters_per_clock_per_sm']:.3f} iterations per clock per busy SM at {max_sm_mhz:.0f} MHz",
-              flush=True)
-    fill = mad[mb.fill_shape(sms)]
-    mad_rate = fill["iters_per_clock_per_sm"]
-    sass = [line for line in mb.mad_sass() if not line.endswith("NOP;")]
-    print(f"  mad_loop_kernel SASS ({len(sass)} instructions but NOPs; cuobjdump -sass):", flush=True)
-    for line in sass:
-        print(f"    {line}", flush=True)
-    print(f"  measured: {mad_rate:.3f} multiply-add iterations per clock per SM with the card filled, against "
-          f"the {IMAD_PER_CLOCK_PER_SM} IMADs per clock per SM the bound assumes", flush=True)
-    mb_launches = {"sqr_chain": mb.sqr_chain.launches, "mad_loop": mb.mad_loop.launches}
+    if run(14):
+        phase("14 microbenchmarks")
+        sms = props.multi_processor_count
+        mb.sqr_chain.launches = mb.mad_loop.launches = 0
+        chain, chain_plain_ms = {}, {}
+        for field in ("vesta", "bls12_381"):
+            fp = get_instance(field, "anemoi_2_1").field
+            mb.check_chain(field, N_PLAIN, dev, seed=args.seed)
+            x = torch.from_numpy(random_canonical(fp, (8,), rng)).to(dev)
+            chain_plain_ms[field], plain = host_time_ms(lambda: mb.sqr_chain_plain(fp, x, 8))
+            held(mb.sqr_chain(fp, x, 8), plain, f"{field} squaring chain", "sqr_chain")
+            c = chain[field] = mb.measure_chain(field, MB_LANES, *CHAIN_TRIPS, MB_REPS, dev, seed=args.seed)
+            print(f"  squaring chain, {field} ({c['words']} words): 8-deep chain exact on {N_PLAIN} lanes against "
+                  f"Python ints, and on 8 lanes against the plain version ({chain_plain_ms[field]:.1f} ms); "
+                  f"{c['lanes']} lanes, {c['n1']} and {c['n2']} squarings: {c['ms1']:.4f} and {c['ms2']:.4f} ms; "
+                  f"{c['ns_per_sqr_per_lane']:.6f} ns per squaring per lane, {c['sqr_per_s']:.6g} squarings/s, "
+                  f"{c['imads_per_s']:.6g} IMADs/s at {c['imads_per_sqr']} a squaring "
+                  f"({c['imads_per_s'] / (sms * max_sm_mhz * 1e6):.2f} per clock per SM at {max_sm_mhz:.0f} MHz; "
+                  f"{smi})", flush=True)
+        x = torch.from_numpy(np.random.default_rng(args.seed).integers(1, 1000, size=(20, 512), dtype=np.int32))
+        mad_plain_ms, plain = host_time_ms(lambda: mb.mad_loop_plain(x.to(dev), 100))
+        held(mb.mad_loop(x.to(dev), 100), plain, "multiply-add loop", "mad_loop")
+        print(f"  multiply-add loop: 10,240 elements x 100 iterations held against the plain version "
+              f"({mad_plain_ms:.1f} ms): identical", flush=True)
+        mad = {}
+        for shape in (*mb.MAD_SHAPES, mb.fill_shape(sms)):
+            r = mad[shape] = mb.measure_mad(shape, *MAD_TRIPS, MB_REPS, dev, sms=sms, clock_mhz=max_sm_mhz, seed=args.seed)
+            print(f"  multiply-add loop, shape {shape}: {r['elements']} elements on {r['busy_sms']} SMs; "
+                  f"{r['ns_per_iter']:.4f} ns per iteration, {r['ns_per_elem_iter']:.6f} ns per element-iteration, "
+                  f"{r['iters_per_clock_per_sm']:.3f} iterations per clock per busy SM at {max_sm_mhz:.0f} MHz",
+                  flush=True)
+        fill = mad[mb.fill_shape(sms)]
+        mad_rate = fill["iters_per_clock_per_sm"]
+        sass = [line for line in mb.mad_sass() if not line.endswith("NOP;")]
+        print(f"  mad_loop_kernel SASS ({len(sass)} instructions but NOPs; cuobjdump -sass):", flush=True)
+        for line in sass:
+            print(f"    {line}", flush=True)
+        print(f"  measured: {mad_rate:.3f} multiply-add iterations per clock per SM with the card filled, against "
+              f"the {IMAD_PER_CLOCK_PER_SM} IMADs per clock per SM the bound assumes", flush=True)
+        mb_launches = {"sqr_chain": mb.sqr_chain.launches, "mad_loop": mb.mad_loop.launches}
 
     # 15 --------------------------------------------------------------------
-    phase("15 kernels")
-    inst = get_instance("vesta", "anemoi_2_1")
-    jive_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * inst.field.n_limbs * 4)
-    show_bound(f"vesta/anemoi_2_1 Jive, {N_FULL} states", jive_bound, jive_ms)
-    inst = get_instance("bls12_381", "anemoi_2_1")
-    jive12_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * inst.field.n_limbs * 4)
-    show_bound(f"bls12_381/anemoi_2_1 Jive, {N_FULL} states", jive12_bound, jive12_ms)
-    jive43_bound = bound(get_instance("bls12_381", "anemoi_4_3"), N_FULL, 0)
-    print(f"  bound, bls12_381/anemoi_4_3 Jive, {N_FULL} states (not run at full size): "
-          f"{jive43_bound['ops_ms']:.3f} ms", flush=True)
-    chain_bls = chain["bls12_381"]
-    chain_bound_ms = MB_LANES * CHAIN_TRIPS[1] * chain_bls["imads_per_sqr"] / imad_per_s * 1e3
-    mad_bound_ms = fill["elements"] * MAD_TRIPS[1] / imad_per_s * 1e3
-    measured_imad_per_s = mad_rate * sms * max_sm_mhz * 1e6
-    print(f"  the bound at the measured rate: {measured_imad_per_s:.4g} IMADs/s ({mad_rate:.3f} per clock per SM) "
-          f"against {imad_per_s:.4g}/s ({IMAD_PER_CLOCK_PER_SM}):", flush=True)
-    for what, b, ms in (("vesta/anemoi_2_1 Jive", jive_bound, jive_ms),
-                        ("bls12_381/anemoi_2_1 Jive", jive12_bound, jive12_ms),
-                        ("bls12_377/anemoi_2_1 Jive", jive377_bound, jive377_ms),
-                        ("vesta/anemoi_4_3 sponge, 4,096 x 10 KB", sponge_bound["anemoi_4_3"],
-                         sponge_ms["anemoi_4_3"]),
-                        ("bls12_381/anemoi_4_3 sponge, 4,096 x 10 KB", sponge12_bound, sponge12_ms),
-                        ("vesta/anemoi_4_3 permutation", perm_bound, perm_ms),
-                        ("bls12_381/anemoi_4_3 permutation", perm12_bound, perm12_ms)):
-        at_measured = b["ops_ms"] * IMAD_PER_CLOCK_PER_SM / mad_rate
-        print(f"    {what}: {ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_ms'] / ms:.1%}); at the measured "
-              f"rate {at_measured:.3f} ms ({at_measured / ms:.1%})", flush=True)
+    if run(15):
+        phase("15 kernels")
+        inst = get_instance("vesta", "anemoi_2_1")
+        jive_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * inst.field.n_limbs * 4)
+        show_bound(f"vesta/anemoi_2_1 Jive, {N_FULL} states", jive_bound, jive_ms)
+        inst = get_instance("bls12_381", "anemoi_2_1")
+        jive12_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * inst.field.n_limbs * 4)
+        show_bound(f"bls12_381/anemoi_2_1 Jive, {N_FULL} states", jive12_bound, jive12_ms)
+        jive43_bound = bound(get_instance("bls12_381", "anemoi_4_3"), N_FULL, 0)
+        print(f"  bound, bls12_381/anemoi_4_3 Jive, {N_FULL} states (not run at full size): "
+              f"{jive43_bound['ops_ms']:.3f} ms", flush=True)
+        chain_bls = chain["bls12_381"]
+        chain_bound_ms = MB_LANES * CHAIN_TRIPS[1] * chain_bls["imads_per_sqr"] / imad_per_s * 1e3
+        mad_bound_ms = fill["elements"] * MAD_TRIPS[1] / imad_per_s * 1e3
+        measured_imad_per_s = mad_rate * sms * max_sm_mhz * 1e6
+        print(f"  the bound at the measured rate: {measured_imad_per_s:.4g} IMADs/s ({mad_rate:.3f} per clock per SM) "
+              f"against {imad_per_s:.4g}/s ({IMAD_PER_CLOCK_PER_SM}):", flush=True)
+        for what, b, ms in (("vesta/anemoi_2_1 Jive", jive_bound, jive_ms),
+                            ("bls12_381/anemoi_2_1 Jive", jive12_bound, jive12_ms),
+                            ("bls12_377/anemoi_2_1 Jive", jive377_bound, jive377_ms),
+                            ("vesta/anemoi_4_3 sponge, 4,096 x 10 KB", sponge_bound["anemoi_4_3"],
+                             sponge_ms["anemoi_4_3"]),
+                            ("bls12_381/anemoi_4_3 sponge, 4,096 x 10 KB", sponge12_bound, sponge12_ms),
+                            ("vesta/anemoi_4_3 permutation", perm_bound, perm_ms),
+                            ("bls12_381/anemoi_4_3 permutation", perm12_bound, perm12_ms)):
+            at_measured = b["ops_ms"] * IMAD_PER_CLOCK_PER_SM / mad_rate
+            print(f"    {what}: {ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_ms'] / ms:.1%}); at the measured "
+                  f"rate {at_measured:.3f} ms ({at_measured / ms:.1%})", flush=True)
 
-    def entry(name, source, replaces, launches, ms, plain_ms, b, **extra):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
-                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None, **extra}
+        def entry(name, source, replaces, launches, ms, plain_ms, b, **extra):
+            return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                    "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"], "library_ms": None, **extra}
 
-    ops = lambda ms: {"bound_ms": ms, "bound_by": "operations"}
-    print(json.dumps({"kernels": [
-        entry("jive", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive_launches,
-              jive_ms, jive_plain_ms, jive_bound, words=8, lanes=N_FULL, plain_lanes=N_SAMPLE, root_ms=root_ms,
-              build_s=lib.build_seconds),
-        entry("permutation", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
-              perm_launches, perm_ms, plain_times[("permutation", "anemoi_4_3")], perm_bound, words=8,
-              instance="vesta/anemoi_4_3", lanes=N_MSGS, plain_lanes=N_PLAIN, build_s=sponge_lib.build_seconds),
-        entry("sponge", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
-              sponge_launches, sponge_ms["anemoi_4_3"], plain_times[("sponge", "anemoi_4_3", 4)],
-              sponge_bound["anemoi_4_3"], words=8, instance="vesta/anemoi_4_3", messages=N_MSGS,
-              elements=native.num_elements(MSG_BYTES, get_instance("vesta", "anemoi_4_3").field),
-              plain_messages=N_SPONGE_PLAIN, plain_elements=4, ms_2_1=sponge_ms["anemoi_2_1"],
-              bound_ms_2_1=sponge_bound["anemoi_2_1"]["bound_ms"], ms_65536=fill_ms,
-              bound_ms_65536=fill_bound["bound_ms"], e2e_ms=e2e_ms, build_s=sponge_lib.build_seconds),
-        entry("jive_w12", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive12_launches,
-              jive12_ms, jive12_plain_ms, jive12_bound, words=12, instance="bls12_381/anemoi_2_1", lanes=N_FULL,
-              plain_lanes=N_SAMPLE, root_ms=root12_ms, ms_bls12_377=jive377_ms,
-              bound_ms_bls12_377=jive377_bound["bound_ms"], build_s=lib12.build_seconds),
-        entry("permutation_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
-              perm12_launches, perm12_ms, plain_times[("permutation_w12", "anemoi_4_3")], perm12_bound, words=12,
-              instance="bls12_381/anemoi_4_3", lanes=N_MSGS, plain_instance="bls12_377/anemoi_4_3",
-              plain_lanes=N_PLAIN, build_s=sponge_lib12.build_seconds),
-        entry("sponge_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
-              sponge12_launches, sponge12_ms, plain_times[("sponge_w12", "anemoi_4_3", 4)], sponge12_bound,
-              words=12, instance="bls12_381/anemoi_4_3", messages=N_MSGS, elements=E, plain_messages=N_PLAIN,
-              plain_elements=4, e2e_ms=e2e12_ms, pack_ms=pack12_ms, build_s=sponge_lib12.build_seconds),
-        entry("sqr_chain", "anemoi_tpu_torch/csrc/microbench.cu", "tools/mxu_prototype.py:110",
-              mb_launches["sqr_chain"], chain_bls["ms2"], chain_plain_ms["bls12_381"], ops(chain_bound_ms),
-              instance="bls12_381", lanes=MB_LANES, squarings=CHAIN_TRIPS[1], plain_lanes=8, plain_squarings=8,
-              ns_per_sqr_per_lane={f: c["ns_per_sqr_per_lane"] for f, c in chain.items()},
-              imads_per_s={f: c["imads_per_s"] for f, c in chain.items()}),
-        entry("mad_loop", "anemoi_tpu_torch/csrc/microbench.cu", "tools/microbench_layout.py:44",
-              mb_launches["mad_loop"], fill["ms2"], mad_plain_ms, ops(mad_bound_ms), elements=fill["elements"],
-              iterations=MAD_TRIPS[1], plain_elements=10240, plain_iterations=100,
-              iters_per_clock_per_sm={"x".join(map(str, s)): r["iters_per_clock_per_sm"] for s, r in mad.items()}),
-    ]}), flush=True)
+        ops = lambda ms: {"bound_ms": ms, "bound_by": "operations"}
+        print(json.dumps({"kernels": [
+            entry("jive", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive_launches,
+                  jive_ms, jive_plain_ms, jive_bound, words=8, lanes=N_FULL, plain_lanes=N_SAMPLE, root_ms=root_ms,
+                  build_s=lib.build_seconds),
+            entry("permutation", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
+                  perm_launches, perm_ms, plain_times[("permutation", "anemoi_4_3")], perm_bound, words=8,
+                  instance="vesta/anemoi_4_3", lanes=N_MSGS, plain_lanes=N_PLAIN, build_s=sponge_lib.build_seconds),
+            entry("sponge", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
+                  sponge_launches, sponge_ms["anemoi_4_3"], plain_times[("sponge", "anemoi_4_3", 4)],
+                  sponge_bound["anemoi_4_3"], words=8, instance="vesta/anemoi_4_3", messages=N_MSGS,
+                  elements=native.num_elements(MSG_BYTES, get_instance("vesta", "anemoi_4_3").field),
+                  plain_messages=N_PLAIN, plain_elements=4, ms_2_1=sponge_ms["anemoi_2_1"],
+                  bound_ms_2_1=sponge_bound["anemoi_2_1"]["bound_ms"], ms_65536=fill_ms,
+                  bound_ms_65536=fill_bound["bound_ms"], e2e_ms=e2e_ms, build_s=sponge_lib.build_seconds),
+            entry("jive_w12", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive12_launches,
+                  jive12_ms, jive12_plain_ms, jive12_bound, words=12, instance="bls12_381/anemoi_2_1", lanes=N_FULL,
+                  plain_lanes=N_SAMPLE, root_ms=root12_ms, ms_bls12_377=jive377_ms,
+                  bound_ms_bls12_377=jive377_bound["bound_ms"], build_s=lib12.build_seconds),
+            entry("permutation_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
+                  perm12_launches, perm12_ms, plain_times[("permutation_w12", "anemoi_4_3")], perm12_bound, words=12,
+                  instance="bls12_381/anemoi_4_3", lanes=N_MSGS, plain_instance="bls12_377/anemoi_4_3",
+                  plain_lanes=N_PLAIN, build_s=sponge_lib12.build_seconds),
+            entry("sponge_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
+                  sponge12_launches, sponge12_ms, plain_times[("sponge_w12", "anemoi_4_3", 4)], sponge12_bound,
+                  words=12, instance="bls12_381/anemoi_4_3", messages=N_MSGS, elements=E, plain_messages=N_PLAIN,
+                  plain_elements=4, e2e_ms=e2e12_ms, pack_ms=pack12_ms, build_s=sponge_lib12.build_seconds),
+            entry("sqr_chain", "anemoi_tpu_torch/csrc/microbench.cu", "tools/mxu_prototype.py:110",
+                  mb_launches["sqr_chain"], chain_bls["ms2"], chain_plain_ms["bls12_381"], ops(chain_bound_ms),
+                  instance="bls12_381", lanes=MB_LANES, squarings=CHAIN_TRIPS[1], plain_lanes=8, plain_squarings=8,
+                  ns_per_sqr_per_lane={f: c["ns_per_sqr_per_lane"] for f, c in chain.items()},
+                  imads_per_s={f: c["imads_per_s"] for f, c in chain.items()}),
+            entry("mad_loop", "anemoi_tpu_torch/csrc/microbench.cu", "tools/microbench_layout.py:44",
+                  mb_launches["mad_loop"], fill["ms2"], mad_plain_ms, ops(mad_bound_ms), elements=fill["elements"],
+                  iterations=MAD_TRIPS[1], plain_elements=10240, plain_iterations=100,
+                  iters_per_clock_per_sm={"x".join(map(str, s)): r["iters_per_clock_per_sm"] for s, r in mad.items()}),
+        ]}), flush=True)
     phase("done")
+    if args.phases != ALL_PHASES:
+        print(f"chip_smoke: phases {sorted(args.phases)} passed; a partial run prints no result line", flush=True)
+        return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

@@ -1,0 +1,75 @@
+"""The readers of nvcc's reports (``anemoi_tpu_torch/sass.py``) on listings
+written in the tools' formats: ptxas -v's lines, cuobjdump -sass's and a
+PTX file's functions, opcode counts.  Nothing here needs nvcc."""
+
+import pytest
+
+from anemoi_tpu_torch import sass
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_Z13sponge_kernelILi4EEvPKiPixi12AnemoiConstsILi12EE' for 'sm_90a'
+ptxas info    : Function properties for _Z13sponge_kernelILi4EEvPKiPixi12AnemoiConstsILi12EE
+0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z11jive_kernelILi4ELi2EEvPKiPix12AnemoiConstsILi12EE' for 'sm_90a'
+ptxas info    : Function properties for _Z11jive_kernelILi4ELi2EEvPKiPix12AnemoiConstsILi12EE
+0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 0 barriers
+"""
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _Z13sponge_kernelILi2EEvPKiPixi12AnemoiConstsILi8EE
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
+                                                                            /* 0x000fe20000000800 */
+        /*fff0*/                   SHFL.IDX PT, R22, R29, RZ, 0x1c1f ;      /* 0x00001c1f1d167589 */
+        /*10000*/              @!P3 IMAD.WIDE.U32 R8, R29, R22, RZ ;        /* 0x000000161d087225 */
+        /*10010*/                  VOTE.ANY R9, PT, !P3 ;                   /* 0x0000000000097806 */
+        /*10020*/             @UP0 STL [R1], R2 ;                           /* 0x0000000201007387 */
+        /*10030*/                  NOP ;                                    /* 0x0000000000007918 */
+\t\tFunction : _Z14permute_kernelILi4EEvPKiPix12AnemoiConstsILi8EE
+        /*0000*/                   IMAD R35, R8, UR15, RZ ;                 /* 0x0000000f08237c24 */
+"""
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_Z13sponge_kernelILi4EEvPKiPixi12AnemoiConstsILi8EE", "sponge_kernel<4>"),
+    ("_Z11jive_kernelILi4ELi2EEvPKiPix12AnemoiConstsILi12EE", "jive_kernel<4,2>"),
+    ("_Z15mad_loop_kernelPii", "_Z15mad_loop_kernelPii"),
+])
+def test_kernel_name(mangled, name):
+    assert sass.kernel_name(mangled) == name
+
+
+def test_ptxas_table():
+    assert sass.ptxas_table(PTXAS.splitlines()) == {"sponge_kernel<4>": (72, 8, 8), "jive_kernel<4,2>": (254, 0, 0)}
+
+
+def test_sass_functions_and_counts():
+    """Offsets of four and of five hex digits, predicates on the opcode,
+    NOPs left out of the count."""
+    funcs = sass.functions(SASS)
+    assert list(funcs) == ["_Z13sponge_kernelILi2EEvPKiPixi12AnemoiConstsILi8EE",
+                           "_Z14permute_kernelILi4EEvPKiPix12AnemoiConstsILi8EE"]
+    first, second = funcs.values()
+    assert len(first) == 6 and len(second) == 1
+    assert sass.opcode_counts(first) == {"instructions": 5, "LDL": 0, "STL": 1, "SHFL": 1, "VOTE": 1, "IMAD": 1}
+    assert sass.opcode_counts(second)["IMAD"] == 1
+
+
+def test_ptx_functions():
+    ptx = ("//\n.visible .entry _Z14permute_kernelILi2EEvPKiPix12AnemoiConstsILi8EE(\n\t.param .u64 a\n)\n{\n"
+           "\tret;\n}\n.visible .entry _Z14permute_kernelILi4EEvPKiPix12AnemoiConstsILi8EE(\n{\n}\n")
+    funcs = sass.functions(ptx, ".entry", r"\S")
+    assert [len(v) for v in funcs.values()] == [5, 2]
+
+
+def test_innermost_loop():
+    """The shortest span from a backward branch back to its target."""
+    lines = ["/*0000*/ MOV R1, R2 ;", "/*0010*/ IMAD R3, R1, R1, RZ ;", "/*0020*/ SHFL.IDX PT, R4, R3, RZ, 0x1c1f ;",
+             "/*0030*/ @P0 BRA 0x10 ;", "/*0040*/ BRA 0x0 ;", "/*0050*/ BRA 0x60 ;", "/*0060*/ EXIT ;"]
+    assert sass.innermost_loop(lines) == lines[1:4]
+    assert sass.opcode_counts(sass.innermost_loop(lines)) == {"instructions": 3, "LDL": 0, "STL": 0, "SHFL": 1,
+                                                             "VOTE": 0, "IMAD": 1}
+    assert sass.innermost_loop(lines[:1]) == []

@@ -2,7 +2,10 @@
 with g++: csrc/sponge.cu's permute_lane and sponge_lane against the port's
 golden model and the SAGE hash_field / hash_bytes vectors of all seven
 fields, at 8 and 12 words, including whole 10 KB messages (331 elements of
-31 bytes for Vesta, 218 of 47 bytes for BLS12-381).
+31 bytes for Vesta, 218 of 47 bytes for BLS12-381).  The sponge kernel runs
+sponge_group, each message on a group of four lanes: here the same
+template over the HostLanes policy (field32_group.cuh), which holds the
+four lanes in one object, is held against the same vectors and messages.
 
 sponge.cu is __host__ __device__ outside its kernels, so this checks the
 very code the kernels are compiled from, without a card, with the
@@ -41,6 +44,14 @@ template <int NW> void sponge_n(int32_t* out, const int32_t* in, int n, int widt
         else sponge_lane<4, NW>(out + i, in + i, (size_t)n, E, c);
     }
 }
+template <int NW> void gsponge_n(int32_t* out, const int32_t* in, int n, int width, int E, const uint32_t* consts,
+                                int store) {
+    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
+    for (int i = 0; i < n; ++i) {
+        if (width == 2) sponge_group<2, NW, HostLanes>(out + i, in + i, (size_t)n, E, store != 0, c);
+        else sponge_group<4, NW, HostLanes>(out + i, in + i, (size_t)n, E, store != 0, c);
+    }
+}
 extern "C" {
 void t_permute(int32_t* out, const int32_t* in, int n, int width, int words, const uint32_t* consts) {
     if (words == 8) permute_n<8>(out, in, n, width, consts);
@@ -49,6 +60,12 @@ void t_permute(int32_t* out, const int32_t* in, int n, int width, int words, con
 void t_sponge(int32_t* out, const int32_t* in, int n, int width, int E, int words, const uint32_t* consts) {
     if (words == 8) sponge_n<8>(out, in, n, width, E, consts);
     else sponge_n<12>(out, in, n, width, E, consts);
+}
+// sponge_group over HostLanes: one group of four lanes per message; a
+// group with store == 0 writes nothing
+void t_gsponge(int32_t* out, const int32_t* in, int n, int width, int E, int words, const uint32_t* consts, int store) {
+    if (words == 8) gsponge_n<8>(out, in, n, width, E, consts, store);
+    else gsponge_n<12>(out, in, n, width, E, consts, store);
 }
 int t_consts_words(int words) {
     return words == 8 ? (int)(sizeof(AnemoiConsts<8>) / 4) : (int)(sizeof(AnemoiConsts<12>) / 4);
@@ -77,12 +94,15 @@ def lib(tmp_path_factory):
                               ctypes.c_void_p]
     lib.t_sponge.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.c_void_p]
+    lib.t_gsponge.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     lib.t_consts_words.argtypes = [ctypes.c_int]
     return lib
 
 
-def _host_sponge(lib, inst, msgs):
-    """sponge_lane over equal-length messages of plain ints -> digests as ints."""
+def _host_sponge(lib, inst, msgs, group=False):
+    """sponge_lane (or, with `group`, sponge_group over four host lanes) over
+    equal-length messages of plain ints -> digests as ints."""
     E, B = len(msgs[0]), len(msgs)
     L = inst.field.n_limbs
     x = np.zeros((E, L, B), np.int32)
@@ -90,8 +110,12 @@ def _host_sponge(lib, inst, msgs):
         x[e] = encode_ints([m[e] for m in msgs], inst.field).numpy()
     out = np.zeros((L, B), np.int32)
     words = cuda_backend.consts_words(inst)
-    lib.t_sponge(out.ctypes.data, np.ascontiguousarray(x.reshape(E * L, B)).ctypes.data, B, inst.width, E,
-                 inst.field.kernel_words, words.ctypes.data)
+    args = (out.ctypes.data, np.ascontiguousarray(x.reshape(E * L, B)).ctypes.data, B, inst.width, E,
+            inst.field.kernel_words, words.ctypes.data)
+    if group:
+        lib.t_gsponge(*args, 1)
+    else:
+        lib.t_sponge(*args)
     assert out.min() >= 0 and out.max() < 1 << 13
     return decode_ints(out, inst.field)
 
@@ -173,3 +197,50 @@ def test_host_permute_matches_golden(lib, field, iname):
     got = [decode_ints(out.reshape(W, L, 5)[w], inst.field) for w in range(W)]
     for b in range(5):
         assert [got[w][b] for w in range(W)] == golden.permutation(inst, [states[w][b] for w in range(W)])
+
+
+@pytest.mark.parametrize("field", FIELD_NAMES)
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_group_sponge_vectors(lib, field, iname):
+    """sponge_group, the code of the four-lane sponge kernel, on every SAGE
+    hash_field and hash_bytes vector of all seven fields."""
+    inst = get_instance(field, iname)
+    vec = load_vectors(field, iname)
+    for elems, want in zip(vec["hash_field"]["input"], vec["hash_field"]["output"]):
+        assert _host_sponge(lib, inst, [[e % inst.field.p for e in elems]], group=True) == [want[0]], elems
+    chunk = inst.field.byte_chunk
+    for elems, want in zip(vec["hash_bytes"]["input"], vec["hash_bytes"]["output"]):
+        data = b"".join(int(e).to_bytes(chunk, "little") for e in elems)
+        assert _host_sponge(lib, inst, [_message_ints(inst, data)], group=True) == [want[0]]
+
+
+@pytest.mark.parametrize("field", ["pallas", "bls12_377"])
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_group_sponge_matches_golden(lib, field, iname):
+    """sponge_group at 8 and 12 words, lengths 1 to 7 (tail 0, 1 and 2,
+    sigma on either side) on a few messages; a group that must not store
+    (a group past the ragged edge on the card) leaves the output alone."""
+    inst = get_instance(field, iname)
+    rng = np.random.default_rng(25)
+    nbytes = 8 * inst.field.kernel_words
+    for E in range(1, 8):
+        msgs = [[int.from_bytes(rng.bytes(nbytes), "little") % inst.field.p for _ in range(E)] for _ in range(3)]
+        assert _host_sponge(lib, inst, msgs, group=True) == [golden.hash_field(inst, m)[0] for m in msgs], E
+    L = inst.field.n_limbs
+    x = random_canonical(inst.field, (4, 2), rng).transpose(1, 0, 2).reshape(4 * L, 2).copy()
+    out = np.full((L, 2), -1, np.int32)
+    lib.t_gsponge(out.ctypes.data, x.ctypes.data, 2, inst.width, 4, inst.field.kernel_words,
+                  cuda_backend.consts_words(inst).ctypes.data, 0)
+    assert (out == -1).all()
+
+
+@pytest.mark.parametrize("field,iname,elements", [("vesta", "anemoi_4_3", 331), ("vesta", "anemoi_2_1", 331),
+                                                  ("bls12_381", "anemoi_4_3", 218)])
+def test_host_group_sponge_full_message(lib, field, iname, elements):
+    """sponge_group over a whole 10 KB message, the bench's size, exact
+    against the golden model: 111, 331 and 73 permutations."""
+    inst = get_instance(field, iname)
+    data = np.random.default_rng(26).bytes(FULL_BYTES)
+    elems = _message_ints(inst, data)
+    assert len(elems) == elements
+    assert _host_sponge(lib, inst, [elems], group=True) == golden.hash_bytes(inst, data)
