@@ -4,16 +4,17 @@
 // the two 30-limb ones.
 //
 // A state is W field elements in Montgomery form with R' = 2^(32 NW),
-// held whole by one thread (ThreadArith over field32.cuh: the Jive and
-// permutation kernels) or word-sliced over a group of four lanes
-// (GroupArith over field32_group.cuh: the sponge kernel); the body is
-// written once over the two.  Rounds: ARK, MDS (1 or 2 columns),
-// open Flystel; then a final MDS.  x^(1/alpha) is a left-to-right binary
-// ladder over the exponent's bits (Vesta: 253 squarings, 124 products;
-// BLS12-381: 380 and 193; the reference's addition chains have 293 and 454
-// operations, and the result is the same canonical value).  Round and
-// ladder loops stay rolled (#pragma unroll 1), which keeps the build to
-// seconds.
+// held whole by one thread (ThreadArith over field32.cuh: the Jive kernel
+// and the one-thread permutation kernel) or word-sliced over a group of
+// four lanes (GroupArith over field32_group.cuh: the sponge kernel and the
+// four-lane permutation kernel); the body is written once over the two.
+// Rounds: ARK, MDS (1 or 2 columns), open Flystel; then a final MDS.
+// x^(1/alpha) is a 4-bit sliding window under ThreadArith (Vesta: 253
+// squarings and 63 products, table included; BLS12-381: 379 and 89) and a
+// binary ladder under GroupArith (253 and 124; 380 and 193); the
+// reference's addition chains have 293 and 454 operations, and the result
+// is the same canonical value.  Round and exponent loops stay rolled
+// (#pragma unroll 1), which keeps the build to seconds.
 //
 // Constants (field words, round constants, exponent bits, rounds) arrive
 // in one struct passed to the kernels by value; one instantiation per
@@ -63,13 +64,24 @@ F32_FN void f32_copy(uint32_t r[NW], const uint32_t a[NW]) {
 // every column before the next, and their products as one N-fold product,
 // so that their latencies overlap.
 
-// One thread holds whole elements (field32.cuh): the Jive and permutation
-// kernels, and sponge_lane.  Columns run one after the other.
+// x^(1/alpha)'s window table under ThreadArith: the odd powers x, x^3, ...,
+// x^15 of a 4-bit window.
+#define INV_ALPHA_WINDOW 4
+#define INV_ALPHA_TABLE (1 << (INV_ALPHA_WINDOW - 1))
+
+// One thread holds whole elements (field32.cuh): the Jive and one-thread
+// permutation kernels, and sponge_lane.  Columns run one after the other,
+// so one window table serves them all: word j of entry e at
+// tab[(e * NW + j) * stride].  The kernels give each thread its slots of a
+// shared-memory table with stride BLOCK (a warp's 32 loads of one word fall
+// in 32 banks), the host builds a local array with stride 1.
 template <int NW>
 struct ThreadArith {
     using Elem = uint32_t[NW];
     static constexpr bool LOCKSTEP = false;
     const AnemoiConsts<NW>& c;
+    uint32_t* tab;
+    int stride;
     G32_MEMBER void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const { f32_add<NW>(r, a, b, c.p); }
     G32_MEMBER void sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const { f32_sub<NW>(r, a, b, c.p); }
     G32_MEMBER void mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const {
@@ -96,11 +108,25 @@ struct ThreadArith {
     G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
     G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
     G32_MEMBER const uint32_t* delta() const { return c.delta; }
+    // the window table: store entry e, load it, and r = a * entry e, the
+    // product reading the entry's words from the table
+    G32_MEMBER void store(int e, const uint32_t a[NW]) const {
+#pragma unroll
+        for (int j = 0; j < NW; ++j) tab[(e * NW + j) * stride] = a[j];
+    }
+    G32_MEMBER void load(uint32_t r[NW], int e) const {
+#pragma unroll
+        for (int j = 0; j < NW; ++j) r[j] = tab[(e * NW + j) * stride];
+    }
+    G32_MEMBER void mul_tab(uint32_t r[NW], const uint32_t a[NW], int e) const {
+        f32_mont_mul<NW>(r, a, tab + e * NW * stride, c.p, c.n0, stride);
+    }
 };
 
 // A group of four lanes holds each element word-sliced (field32_group.cuh,
-// lane policy P): the sponge kernel.  The lane's slices of p, beta and
-// delta stay in registers; a round constant is sliced where it is added.
+// lane policy P): the sponge and four-lane permutation kernels.  The
+// lane's slices of p, beta and delta stay in registers; a round constant
+// is sliced where it is added.
 // Squaring is the group product of a value by itself.  Columns run in
 // lockstep, so the Flystels' products come N at a time; mds's products by
 // beta (60 of a Vesta 4_3 permutation's 10,728) come one at a time.
@@ -148,10 +174,33 @@ struct GroupArith {
     G32_MEMBER const Elem& delta() const { return delta_; }
 };
 
-// x^(1/alpha) of N elements: left-to-right binary ladder over the
-// exponent's bits.  Under LOCKSTEP each trip of the loop is one N-fold
-// product, a squaring or, after a set bit, the product by x, so the loop
-// holds one copy of the product's code.
+// The window of the exponent `e` that starts at its set bit `top`: at
+// most INV_ALPHA_WINDOW bits, down to the lowest set bit among them.
+// Returns the table entry of its odd value, (value - 1) / 2, and its length
+// in `len`.
+F32_FN int inv_alpha_window(const uint32_t* e, int top, int& len) {
+    int lo = top - (INV_ALPHA_WINDOW - 1) < 0 ? 0 : top - (INV_ALPHA_WINDOW - 1);
+    while (!((e[lo >> 5] >> (lo & 31)) & 1u)) ++lo;
+    int value = 0;
+    for (int b = top; b >= lo; --b) value = 2 * value + (int)((e[b >> 5] >> (b & 31)) & 1u);
+    len = top - lo + 1;
+    return value >> 1;
+}
+
+// x^(1/alpha) of N elements.
+//   * Under LOCKSTEP (GroupArith): a left-to-right binary ladder over the
+//     exponent's bits.  Each trip of the loop is one N-fold product, a
+//     squaring or, after a set bit, the product by x, so the loop holds one
+//     copy of the product's code.
+//   * Otherwise (ThreadArith, N = 1): a left-to-right sliding window of 4
+//     bits.  The table x, x^3, ..., x^15 takes one squaring (x^2) and seven
+//     products.  Then, from the top bit down, a zero bit between windows is
+//     one squaring, and a window is one squaring a bit and one product by
+//     the table entry of its odd value; the first window is its entry.  Each
+//     trip of the rolled loop is one squaring or one product; every branch
+//     reads only the exponent, the same in every thread.  Vesta: 253
+//     squarings and 63 products (the ladder's 253 and 124); BLS12-381: 379
+//     and 89 (380 and 193).
 template <int N, class A>
 F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::Elem* x) {
     typename A::Elem acc[N];
@@ -173,10 +222,40 @@ F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::El
             ar.template mul_n<N>(acc, acc, f);
         }
     } else {
+        static_assert(N == 1, "one thread runs its columns one after the other");
+        ar.store(0, x[0]);
+        ar.sqr(acc[0], x[0]);
 #pragma unroll 1
-        for (int bit = (int)ar.c.inv_alpha_bits - 2; bit >= 0; --bit) {
-            ar.template sqr_n<N>(acc, acc);
-            if ((ar.c.inv_alpha[bit >> 5] >> (bit & 31)) & 1u) ar.template mul_n<N>(acc, acc, x);
+        for (int e = 1; e < INV_ALPHA_TABLE; ++e) {
+            typename A::Elem t;
+            ar.mul_tab(t, acc[0], e - 1);
+            ar.store(e, t);
+        }
+        const uint32_t* bits = ar.c.inv_alpha;
+        int bit = (int)ar.c.inv_alpha_bits - 1, sq;
+        ar.load(acc[0], inv_alpha_window(bits, bit, sq));
+        bit -= sq;
+        sq = 0;
+        int e = -1;  // what comes before bit: sq squarings, then the product by entry e if e >= 0
+#pragma unroll 1
+        for (;;) {
+            if (sq == 0 && e < 0) {
+                if (bit < 0) break;
+                if ((bits[bit >> 5] >> (bit & 31)) & 1u) {
+                    e = inv_alpha_window(bits, bit, sq);
+                    bit -= sq;
+                } else {
+                    sq = 1;
+                    --bit;
+                }
+            }
+            if (sq > 0) {
+                ar.sqr(acc[0], acc[0]);
+                --sq;
+            } else {
+                ar.mul_tab(acc[0], acc[0], e);
+                e = -1;
+            }
         }
     }
 #pragma unroll

@@ -88,19 +88,21 @@ F32_FN void f32_sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW], 
 
 // r = a * b / 2^(32 NW) mod p (CIOS).  Takes any a below 2^(32 NW) and b
 // below p: the sum before the last subtraction is below 2p.  r may alias a
-// or b.
+// or b.  Word i of b is at b[i * bs]: each is read once, at step i, so b
+// may lie in memory (the window table of anemoi32.cuh, in shared memory).
 template <int NW>
-F32_FN void f32_mont_mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW], const uint32_t p[NW],
-                         uint32_t n0) {
+F32_FN void f32_mont_mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t* b, const uint32_t p[NW],
+                         uint32_t n0, int bs = 1) {
     uint32_t t[NW + 2];
 #pragma unroll
     for (int j = 0; j < NW + 2; ++j) t[j] = 0;
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
+        const uint32_t bi = b[i * bs];
         uint64_t c = 0;
 #pragma unroll
         for (int j = 0; j < NW; ++j) {
-            uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+            uint64_t s = (uint64_t)a[j] * bi + t[j] + c;
             t[j] = (uint32_t)s;
             c = s >> 32;
         }

@@ -22,8 +22,19 @@
 //     top of its last limb) are dropped, so a larger row is taken mod
 //     2^(32 NW).
 //   * The permutation (anemoi32.cuh, shared with sponge.cu): rounds of
-//     ARK, MDS and open Flystel, then a final MDS; x^(1/alpha) by a binary
-//     ladder; loops rolled.  Then the feed-forward sum.
+//     ARK, MDS and open Flystel, then a final MDS; loops rolled.  Then the
+//     feed-forward sum.
+//   * x^(1/alpha) is a left-to-right sliding window of 4 bits
+//     (anemoi32.cuh:exp_inv_alpha): a table of the odd powers x, x^3, ...,
+//     x^15, then per window its squarings and one product by an entry.  The
+//     table is 8 entries of NW words a thread, 32 KB a 128-thread block at 8
+//     words and 48 KB (the static limit) at 12, so it lives in shared memory,
+//     thread-major: word j of entry e of thread t at [(e NW + j) BLOCK + t],
+//     so a warp's 32 loads of one word fall in 32 banks.  The product reads
+//     its table operand word by word from there (one load a word step), so
+//     no entry is copied into registers.  Each thread reads only its own
+//     slots, so no barrier is needed; width 4 runs its two columns one after
+//     the other and reuses the table.
 //   * Exit (f32_to_limbs): one Montgomery product by c_out = 2^(13L) mod p,
 //     then the words are cut back into 13-bit limbs.
 //   * Constants (field words, round constants, exponent bits, rounds)
@@ -40,10 +51,13 @@
 // 360 bytes and needs 7,980 squarings of 456 IMADs and 1,638 products of
 // 588: ~4.6 M.  Compute-bound by three orders of magnitude (chip_smoke.py
 // computes it; PERF.md has the numbers).  What the design does about that:
-// nothing yet.  The ladder does more products than the addition chain
-// (Vesta 29%, BLS12-381 26% more operations), and every product is a
-// plain CIOS without Hopper's carry-chained multiply-adds.  At 12 words a
-// width-4 state is 48 words, and ptxas spills (PERF.md).
+// it issues fewer products.  The window does 316 operations per Vesta
+// x^(1/alpha) and 468 per BLS12-381 one, where a binary ladder does 377 and
+// 573 and the reference's chain 293 and 454; the chain would need 13
+// to 30 live temporaries, which do not fit beside the 12-word width-4
+// state (246 to 254 registers, no spill, PERF.md).  Every product is
+// still a plain CIOS in C, without Hopper's carry-chained multiply-adds
+// (mad.lo.cc / madc.hi): the next step on the product.
 
 #include <stdint.h>
 #include <string.h>
@@ -53,9 +67,11 @@
 #define BLOCK 128
 
 // Jive-k of one state: limb row r of the state at in[r * n], of the result
-// at out[r * n].
+// at out[r * n]; tab holds INV_ALPHA_TABLE * NW words at `stride` apart, the
+// thread's window table (ThreadArith).
 template <int W, int K, int NW>
-F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiConsts<NW>& c) {
+F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiConsts<NW>& c, uint32_t* tab,
+                      int stride) {
     constexpr int OUT = W / K, NL = f32_limbs<NW>;
     uint32_t s[W][NW];
 #pragma unroll
@@ -68,7 +84,7 @@ F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiCon
 #pragma unroll
         for (int j = 1; j < K; ++j) f32_add<NW>(ff[i], ff[i], s[i + OUT * j], c.p);
     }
-    permute_state<W>(s, ThreadArith<NW>{c});
+    permute_state<W>(s, ThreadArith<NW>{c, tab, stride});
 #pragma unroll
     for (int i = 0; i < OUT; ++i) {
 #pragma unroll
@@ -80,12 +96,35 @@ F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiCon
 #ifdef __CUDACC__
 using Consts = AnemoiConsts<ANEMOI_WORDS>;
 
+// The blocks an SM each width is built for, the second bound of
+// __launch_bounds__: it caps the registers and changes how ptxas schedules
+// the code.  Each is the fastest value of 1 to 8 without spills in
+// `python3 -m anemoi_tpu_torch.bounds_sweep` over 2^20 states on an H100
+// 80GB HBM3 at 700 W (PERF.md has the table); a value replaced the one
+// before only when faster by more than the sweep's own noise (the shipped
+// build against its twin).  The sweep builds with each value given by -D;
+// measure again when nvcc changes.
+#if ANEMOI_WORDS == 8
+#ifndef JIVE2_MIN_BLOCKS
+#define JIVE2_MIN_BLOCKS 6
+#endif
+#else
+#ifndef JIVE2_MIN_BLOCKS
+#define JIVE2_MIN_BLOCKS 3
+#endif
+#endif
+#ifndef JIVE4_MIN_BLOCKS
+#define JIVE4_MIN_BLOCKS 1
+#endif
+
 template <int W, int K>
-__global__ void __launch_bounds__(BLOCK) jive_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                                                     long long n, const __grid_constant__ Consts c) {
+__global__ void __launch_bounds__(BLOCK, W == 2 ? JIVE2_MIN_BLOCKS : JIVE4_MIN_BLOCKS)
+    jive_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n,
+                const __grid_constant__ Consts c) {
+    __shared__ uint32_t tab[INV_ALPHA_TABLE * ANEMOI_WORDS * BLOCK];  // 32 KB at 8 words, 48 KB at 12
     const long long lane = (long long)blockIdx.x * BLOCK + threadIdx.x;
     if (lane >= n) return;  // the ragged edge
-    jive_lane<W, K, ANEMOI_WORDS>(out + lane, in + lane, (size_t)n, c);
+    jive_lane<W, K, ANEMOI_WORDS>(out + lane, in + lane, (size_t)n, c, tab + threadIdx.x, BLOCK);
 }
 
 extern "C" {
@@ -115,5 +154,19 @@ const char* anemoi_error_string(int err) { return cudaGetErrorString((cudaError_
 
 // The layout of the constants this library takes: 507 words at 8, 759 at 12.
 int anemoi_jive_consts_words(void) { return (int)(sizeof(Consts) / 4); }
+
+// Blocks of jive_kernel<width, k> resident on one SM of the current device
+// (registers and shared memory permitting), or -1 on an error.
+int anemoi_jive_blocks_per_sm(int width, int k) {
+    int blocks = -1;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (width == 2 && k == 2)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<2, 2>, BLOCK, 0);
+    else if (width == 4 && k == 2)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<4, 2>, BLOCK, 0);
+    else if (width == 4 && k == 4)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<4, 4>, BLOCK, 0);
+    return err == cudaSuccess ? blocks : -1;
+}
 }
 #endif  // __CUDACC__

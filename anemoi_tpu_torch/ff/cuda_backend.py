@@ -7,19 +7,25 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
   * ``jive`` (``csrc/jive.cu``, for ``jive_pallas``): fused Jive-k,
     int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].
   * ``permutation`` (``csrc/sponge.cu``, for ``permutation_pallas``):
-    int32 [WIDTH*L, N] -> int32 [WIDTH*L, N].
+    int32 [WIDTH*L, N] -> int32 [WIDTH*L, N].  Two kernels: up to
+    ``permute_group_max`` states (the library's crossover, measured on the
+    card) ``permute_group_kernel``, four lanes per state (4N threads), as
+    the sponge; above it ``permute_kernel``, one thread per state.
   * ``sponge`` (``csrc/sponge.cu``, for ``sponge_pallas``): the fused
     fixed-length sponge over messages of E >= rate elements,
     int32 [E*L, N] -> int32 [DIGEST*L, N].  Its kernel runs four lanes
     per message (4N threads): each lane holds a quarter of every state
     word, and the group does the field arithmetic together through warp
-    shuffles (``csrc/field32_group.cuh``); the Jive and permutation kernels
-    run one thread per state.
+    shuffles (``csrc/field32_group.cuh``).  The Jive kernel runs one thread
+    per state; its x^(1/alpha) is a 4-bit sliding window whose table lives
+    in shared memory, as in the one-thread permutation kernel.
 
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
 ``limb_ops``) for a tensor on the CPU; it never falls back from one to the
-other.  Each counts its launches in ``<wrapper>.launches``.  The kernels
+other.  Each counts its launches in ``<wrapper>.launches``;
+``permutation.group_launches`` counts those of them that went to the
+four-lane kernel, as the launcher reports the kernel it picked.  The kernels
 cover every field: each source is built once per word count (8 for the
 20-limb fields, 12 for the 30-limb ones), and a wrapper launches the
 library of its field's ``kernel_words``.
@@ -157,21 +163,51 @@ def permutation_plain(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
 
 def permutation(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
     """The Anemoi permutation of every state: int32 [WIDTH*L, N] -> int32
-    [WIDTH*L, N].  A CUDA tensor goes to the kernel (or the call raises), a
-    CPU tensor to ``permutation_plain``."""
+    [WIDTH*L, N].  A CUDA tensor goes to a kernel (or the call raises): the
+    four-lane kernel up to ``permute_group_max`` states, the one-thread
+    kernel above; a CPU tensor goes to ``permutation_plain``."""
     W, L = inst.width, inst.field.n_limbs
     if not _check(inst, x, W * L):
         return permutation_plain(inst, x)
-    lib = sponge_library(inst.field.kernel_words).cdll
-    out = torch.empty_like(x)
     if x.shape[1] == 0:
-        return out
-    _launch(lib, "anemoi_permute", x, out, W, consts_words(inst).ctypes.data)
+        return torch.empty_like(x)
+    out, group = _permute(inst, x, -1)
     permutation.launches += 1
+    permutation.group_launches += group
     return out
 
 
 permutation.launches = 0
+permutation.group_launches = 0
+
+
+def permute_group_max(words: int) -> int:
+    """The most states for which ``permutation`` launches the four-lane
+    kernel: ``PERMUTE_GROUP_MAX`` of the `words`-word library."""
+    return sponge_library(words).cdll.anemoi_permute_group_max()
+
+
+def permutation_with(inst: InstanceParams, x: torch.Tensor, group: bool) -> torch.Tensor:
+    """The permutation of CUDA states by the named kernel, the four-lane one
+    (``group``) or the one-thread one, whatever N: for timing the two
+    against each other and holding each against the plain version.  Not a
+    path of the port, so not counted in ``permutation.launches``."""
+    W, L = inst.width, inst.field.n_limbs
+    if not _check(inst, x, W * L):
+        raise ValueError("permutation_with takes a CUDA tensor")
+    return _permute(inst, x, int(group))[0] if x.shape[1] else torch.empty_like(x)
+
+
+def _permute(inst: InstanceParams, x: torch.Tensor, kernel: int) -> tuple[torch.Tensor, bool]:
+    """Launches ``anemoi_permute`` on CUDA states: `kernel` -1 lets the
+    launcher pick by N, 1 and 0 name the four-lane and the one-thread
+    kernel.  Returns the output and whether the four-lane kernel ran, as
+    the launcher reports it."""
+    out = torch.empty_like(x)
+    launched = ctypes.c_int(-1)
+    _launch(sponge_library(inst.field.kernel_words).cdll, "anemoi_permute", x, out, inst.width, kernel,
+            consts_words(inst).ctypes.data, ctypes.pointer(launched))
+    return out, launched.value == 1
 
 
 # --------------------------------------------------------------------------
@@ -241,38 +277,50 @@ def declare(lib: ctypes.CDLL, launchers: dict) -> None:
     lib.anemoi_error_string.restype = ctypes.c_char_p
 
 
-def _load(source: str, words: int, launchers: dict, consts_fn: str) -> _build.Library:
-    """csrc/<source> built for `words` (-DANEMOI_WORDS), its C interface
-    declared and its constants' layout checked against ``consts_words``."""
+def _declare(fn, argtypes: list, restype) -> None:
+    fn.argtypes, fn.restype = argtypes, restype
+
+
+def _load(source: str, words: int, launchers: dict, consts_fn: str, defines: tuple) -> _build.Library:
+    """csrc/<source> built for `words` (-DANEMOI_WORDS) and any further
+    `defines`, its C interface declared and its constants' layout checked
+    against ``consts_words``."""
     if words not in KERNEL_WORDS:
         raise ValueError(f"the kernels are built for {KERNEL_WORDS} words, not {words}")
-    built = _build.load(source, defines=(f"-DANEMOI_WORDS={words}",))
+    built = _build.load(source, defines=(f"-DANEMOI_WORDS={words}", *defines))
     lib = built.cdll
     declare(lib, launchers)
     layout = getattr(lib, consts_fn)
-    layout.argtypes = []
-    layout.restype = ctypes.c_int
+    _declare(layout, [], ctypes.c_int)
     if layout() != consts_len(words):
         raise RuntimeError(f"AnemoiConsts<{words}> in {source} and consts_words() disagree on the layout")
     return built
 
 
 @lru_cache(maxsize=None)
-def library(words: int) -> _build.Library:
-    """jive.cu for `words`-word fields, built at first use."""
-    return _load("jive.cu", words, {"anemoi_jive": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
-                 "anemoi_jive_consts_words")
+def library(words: int, defines: tuple = ()) -> _build.Library:
+    """jive.cu for `words`-word fields, built at first use; `defines` (-D
+    flags) only for measuring variants of the source's constants."""
+    built = _load("jive.cu", words, {"anemoi_jive": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+                  "anemoi_jive_consts_words", defines)
+    _declare(built.cdll.anemoi_jive_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
+    return built
 
 
 @lru_cache(maxsize=None)
-def sponge_library(words: int) -> _build.Library:
-    """sponge.cu for `words`-word fields, built at first use."""
-    return _load(
+def sponge_library(words: int, defines: tuple = ()) -> _build.Library:
+    """sponge.cu for `words`-word fields, built at first use; `defines` as
+    ``library``'s."""
+    built = _load(
         "sponge.cu",
         words,
         {
-            "anemoi_permute": [ctypes.c_int, ctypes.c_void_p],
+            "anemoi_permute": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
             "anemoi_sponge": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         },
         "anemoi_sponge_consts_words",
+        defines,
     )
+    _declare(built.cdll.anemoi_permute_group_max, [], ctypes.c_longlong)
+    _declare(built.cdll.anemoi_sponge_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
+    return built

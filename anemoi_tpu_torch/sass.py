@@ -1,18 +1,20 @@
 """What nvcc made of the kernels: ptxas's register and spill report, the
-SASS (``cuobjdump -sass``) by kernel, and a comparison of the Jive and
-permutation kernels built from two source trees, for a change that must
-leave them as they were:
+SASS (``cuobjdump -sass``) by kernel, and a comparison of the kernels built
+from two source trees, for a change that must leave some of them as they
+were:
 
     python -m anemoi_tpu_torch.sass OTHER_CSRC
 
 builds ``jive.cu`` and ``sponge.cu`` of this package's ``csrc/`` and of
 OTHER_CSRC (for example ``csrc/`` of a ``git archive`` of the parent
 commit) at 8 and 12 words with the package's nvcc flags, all at once in a
-temporary directory, and prints for every ``jive_kernel`` and
-``permute_kernel`` whether its PTX and its SASS instructions (opcodes,
-registers, operands, in order) are the same in both, how many differ, and
-whether their binary encodings differ too.  Needs nvcc and cuobjdump (the
-card's machine).
+temporary directory, and prints for every kernel (``jive_kernel``,
+``permute_kernel``, ``permute_group_kernel``, ``sponge_kernel``) "same" when
+its PTX and its SASS instructions (opcodes, registers, operands, in order)
+are the same in both trees and "changed" otherwise, with how many
+instructions differ and whether the binary encodings differ too; a kernel
+that only this tree has is "new".  Needs nvcc and cuobjdump (the card's
+machine).
 """
 
 from __future__ import annotations
@@ -61,9 +63,11 @@ def disassemble(lib: Path) -> str:
     return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True, timeout=120).stdout
 
 
-def functions(text: str, start: str = "Function :", line_re: str = SASS_LINE) -> dict[str, list[str]]:
+def functions(text: str, start: str = "Function :", line_re: str = SASS_LINE,
+              end: str | None = None) -> dict[str, list[str]]:
     """{mangled name: its lines} from a listing (SASS by default, or PTX
-    with start=".entry") whose functions open with `start` and the name."""
+    with start=".entry" and end="}") whose functions open with `start` and
+    the name, and close with a line `end` (or at the next function)."""
     out, cur = {}, None
     for line in text.splitlines():
         if start in line:
@@ -71,6 +75,8 @@ def functions(text: str, start: str = "Function :", line_re: str = SASS_LINE) ->
             out[cur] = []
         elif cur is not None and re.search(line_re, line):
             out[cur].append(line.strip())
+            if line.rstrip() == end:  # at the line's start: inner blocks are indented
+                cur = None
     return out
 
 
@@ -100,6 +106,26 @@ def kernel_counts(lib: Path) -> dict[str, dict[str, int]]:
             for name, lines in functions(disassemble(lib)).items()}
 
 
+def compare(name: str, this: tuple[dict, dict], other: tuple[dict, dict]) -> str:
+    """One kernel of two builds, each (SASS, PTX) functions by mangled name:
+    "same" (PTX alike but for the basic-block labels, which are numbered
+    across the module, and SASS instructions alike, whatever their
+    encodings), "changed" (with how many instruction lines differ) or
+    "new"."""
+    (sass_a, ptx_a), (sass_b, ptx_b) = this, other
+    if name not in sass_b:
+        return f"{kernel_name(name)}: new ({len(sass_a[name])} SASS instructions)"
+    a, b = ([re.sub(r"/\*.*?\*/", "", line).strip() for line in f[name]] for f in (sass_a, sass_b))
+    changed = sum(line[:1] in "+-" and not line.startswith(("+++", "---"))
+                  for line in difflib.unified_diff(b, a, lineterm="", n=0))
+    label = lambda lines: [re.sub(r"\$L__BB\d+_", "$L__BB_", line) for line in lines or ()]
+    same_ptx = label(ptx_a.get(name)) == label(ptx_b.get(name))  # blocks are numbered across the module
+    return (f"{kernel_name(name)}: {'same' if same_ptx and a == b else 'changed'}; PTX "
+            f"{'the same' if same_ptx else 'differs'}; SASS {len(a)} and {len(b)} instructions, "
+            + ("the same" if a == b else f"{changed} lines differ")
+            + ("" if sass_a[name] == sass_b[name] else " (their encodings differ)"))
+
+
 def _build_one(csrc: Path, source: str, words: int, out: Path) -> tuple[dict, dict]:
     """(SASS, PTX) functions of csrc/source at `words` words."""
     stem = out / f"{csrc.parent.name}_{Path(source).stem}_{words}"
@@ -109,7 +135,7 @@ def _build_one(csrc: Path, source: str, words: int, out: Path) -> tuple[dict, di
                    capture_output=True)
     subprocess.run([_build.nvcc(), "-std=c++17", "-O3", "-arch=sm_90a", "-ptx", define, "-o", str(ptx),
                     str(csrc / source)], check=True, capture_output=True)
-    return functions(disassemble(lib)), functions(ptx.read_text(), ".entry", r"\S")
+    return functions(disassemble(lib)), functions(ptx.read_text(), ".entry", r"\S", "}")
 
 
 def main(argv: list[str]) -> int:
@@ -124,15 +150,9 @@ def main(argv: list[str]) -> int:
             d.mkdir()
         built = dict(zip(jobs, pool.map(lambda j: _build_one(trees[j[0]], j[1], j[2], dirs[j[0]]), jobs)))
     for _, source, words in jobs[:4]:
-        (sass_a, ptx_a), (sass_b, ptx_b) = built[(0, source, words)], built[(1, source, words)]
-        for name in sorted(n for n in sass_a if n in sass_b and kernel_name(n).startswith(("jive_", "permute_"))):
-            a, b = ([re.sub(r"/\*.*?\*/", "", line).strip() for line in f[name]] for f in (sass_a, sass_b))
-            changed = sum(line[:1] in "+-" and not line.startswith(("+++", "---"))
-                          for line in difflib.unified_diff(b, a, lineterm="", n=0))
-            print(f"{words} words, {kernel_name(name)}: PTX {'the same' if ptx_a[name] == ptx_b[name] else 'differs'}; "
-                  f"SASS {len(a)} and {len(b)} instructions, "
-                  + ("the same" if a == b else f"{changed} lines differ")
-                  + ("" if sass_a[name] == sass_b[name] else " (their encodings differ)"), flush=True)
+        this, other = built[(0, source, words)], built[(1, source, words)]
+        for name in sorted(this[0], key=kernel_name):
+            print(f"{words} words, {compare(name, this, other)}", flush=True)
     return 0
 
 

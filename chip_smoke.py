@@ -16,9 +16,12 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
   2. the builds, all started together: csrc/jive.cu and csrc/sponge.cu with
      nvcc once for 8 words and once for 12, csrc/microbench.cu, each timed,
      with ptxas's report, and the host's byte packer with g++; each Jive,
-     permutation and sponge kernel's registers and spills (beside PR 7's
-     for the Jive and permutation kernels, whose code must not change) and
-     its SASS's local-memory loads and stores, shuffles, votes and IMADs;
+     permutation and sponge kernel's registers and spills beside the
+     earlier kernels' (the sponge kernel's code must not change; a Jive
+     or one-thread permutation kernel that spills fails), its
+     resident blocks per SM, its SASS's local-memory loads and stores,
+     shuffles, votes and IMADs, and the four-lane kernels' innermost loop;
+     the permutation's crossover (PERMUTE_GROUP_MAX) at 8 and 12 words;
   3. the kernel against its plain PyTorch version on the card, bit for bit,
      for Vesta 2_1 (k=2) and Vesta 4_3 (k=2, 4): 4,099 states, the plain
      version on 257 of them (both ends, so the ragged last block is among
@@ -27,13 +30,18 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
   4. the SAGE Jive vectors of the five 20-limb fields x 2 instances;
   5. full size, Vesta 2_1: the main path with every launch count set to 0
      just before and read just after (one Jive over 2^20 states and one
-     2^20-leaf root: 1 + 20 launches); then Jive timed with CUDA events,
-     1,024 sampled lanes against the plain version, the root timed, up to
-     1,024 columns of each of its levels against the plain version, and a
-     16-leaf root against the plain version's;
+     2^20-leaf root: 1 + 20 launches); then Jive timed with CUDA events
+     beside the earlier kernels' and its bound, 1,024 sampled lanes
+     against the plain version, the root timed, up to 1,024 columns of
+     each of its levels against the plain version, and a 16-leaf root
+     against the plain version's;
   6. the permutation and sponge kernels against their plain versions, bit
-     for bit: the permutation of Vesta 2_1 and 4_3 (4,099 states, 257 held
-     against the plain version), the sponge over 1,024 messages of Vesta
+     for bit: both permutation kernels for Vesta 2_1 and 4_3, through
+     ``permutation`` at N = 5, 4,099, the crossover X, X - 3 and X + 1
+     (ragged on either side of it) and 65,536 (the one-thread kernel at
+     phase 8's second path) and through ``permutation_with`` each kernel
+     at 4,099, up to 257 lanes of each N held (both ends); the
+     sponge over 1,024 messages of Vesta
      4_3 with E = 3 (sigma, no extra permutation), all held, and over 4,099
      (not a whole warp of 8 messages nor a block of 32; 257 held at both
      ends) with E = 4 (tail 1) and of Vesta 2_1 with E = 2;
@@ -45,23 +53,31 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      main path with every launch count set to 0 just before and read just
      after (``.batch.hash_bytes`` for Vesta 4_3 and 2_1: one sponge launch
      each; ``BatchedSponge`` over the 4_3 messages in 4 rate-aligned chunks
-     and the tail: one permutation launch per block, 111 in all, digests
-     equal to hash_bytes's); then host packing, kernel time (CUDA events)
-     and bound; 32 sampled messages per instance against the port's golden
-     model; and the sponge kernel alone over 65,536 Vesta 4_3 messages
-     made on the card, 4 lanes against the golden model; the sponge's lanes
-     per message and each time beside PR 7's (one lane per message), and
-     the kernel over the first 1,024 and 2,048 of the messages;
-  9. the seven 12-word instantiations against their plain versions, bit for
-     bit, 4,099 lanes each and 257 of them held: Jive (2,2), (4,2), (4,4)
-     for BLS12-381, the permutation of BLS12-377 2_1 and 4_3, the sponge
-     for BLS12-381 4_3 with E = 3 and E = 4 and 2_1 with E = 2;
+     and the tail: one four-lane permutation launch per block, 111 in all,
+     digests equal to hash_bytes's); then host packing, kernel time (CUDA
+     events) and bound; 32 sampled messages per instance against the
+     port's golden model; the sponge kernel alone over 65,536 Vesta 4_3
+     messages made on the card, 4 lanes against the golden model; each
+     time beside the earlier kernels'; the kernel over the first 1,024 and
+     2,048 of the messages; the second path, counts set to 0 just before
+     and read just after: ``BatchedSponge`` over 65,536 of those streams
+     (8 rate-blocks and a tail: 9 one-thread permutation launches), its
+     digests equal to the sponge kernel's; the permutation at 4,096 states
+     beside the earlier kernels', the crossover sweep (both kernels at
+     4,096 to 65,536 states) and ``BatchedSponge`` end to end beside its
+     launches' time;
+  9. the 12-word instantiations against their plain versions, bit for bit,
+     4,099 lanes each and 257 of them held: Jive (2,2), (4,2), (4,4) for
+     BLS12-381, both permutation kernels of BLS12-377 2_1 and 4_3 as in
+     phase 6, the sponge for BLS12-381 4_3 with E = 3 and E = 4 and 2_1
+     with E = 2;
  10. the SAGE jive, hash_field and hash_bytes vectors of BLS12-377 and
      BLS12-381 x 2 instances through ``.batch`` on the card;
  11. full size, BLS12-381 2_1: the main path with every launch count set to
      0 just before and read just after (one Jive over 2^20 states and one
-     2^20-leaf root: 1 + 20 launches); Jive timed, 1,024 sampled lanes
-     against the plain version; the root timed with ``return_levels``;
+     2^20-leaf root: 1 + 20 launches); Jive timed beside the earlier
+     kernels' and its bound, 1,024 sampled lanes against the plain
+     version; the root timed with ``return_levels``;
      ``prove`` and ``verify`` for 8 leaves (0 and 2^20 - 1 among them) and
      a tampered leaf that must fail; then BLS12-377 2_1 Jive over 2^20
      states, timed, 256 sampled lanes against the golden model;
@@ -72,9 +88,12 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      (218 elements of 47 bytes); the main path with every launch count set
      to 0 just before and read just after (``.batch.hash_bytes``: one
      sponge launch; ``BatchedSponge`` in rate-aligned chunks and the tail:
-     73 permutation launches); host packing, kernel time, end to end, the
-     bound and its share, beside PR 7's; 32 sampled messages against the
-     golden model;
+     73 four-lane permutation launches); host packing, kernel time, end to
+     end, the bound and its share, beside the earlier kernels'; 32 sampled
+     messages against the golden model; the second path over 65,536
+     streams made on the card (9 one-thread launches); the permutation at
+     4,096 states, the crossover sweep and ``BatchedSponge`` end to end, as
+     in phase 8;
  14. the microbenchmarks (``anemoi_tpu_torch/microbench.py``): the squaring
      chain's 8-deep check against Python ints (Vesta, BLS12-381) and its ns
      per squaring; the multiply-add loop at the JAX tool's shapes and at
@@ -161,15 +180,28 @@ def permutation_work(inst, chain) -> tuple[int, int]:
     return squarings, products
 
 
-# PR 7's figures (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's: ptxas registers of the
-# kernels whose code must not change, and the one-thread-per-message sponge kernel's times.
-PR7_REGISTERS = {(8, "jive_kernel<2,2>"): 64, (8, "jive_kernel<4,2>"): 126, (8, "jive_kernel<4,4>"): 126,
+# The figures of the kernels before the 4-bit window and the four-lane permutation (PERF.md's table; NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's: ptxas registers of every kernel (the sponge kernel's code must not
+# change), the binary-ladder kernels' times, and the sponge's, which must stay within 2%.
+EARLIER_REGISTERS = {(8, "jive_kernel<2,2>"): 64, (8, "jive_kernel<4,2>"): 126, (8, "jive_kernel<4,4>"): 126,
                  (8, "permute_kernel<4>"): 96, (8, "permute_kernel<2>"): 60,
+                 (8, "sponge_kernel<2>"): 44, (8, "sponge_kernel<4>"): 62,
                  (12, "jive_kernel<2,2>"): 92, (12, "jive_kernel<4,2>"): 254, (12, "jive_kernel<4,4>"): 246,
-                 (12, "permute_kernel<4>"): 144, (12, "permute_kernel<2>"): 90}
-PR7_SPONGE_MS = {"vesta/anemoi_4_3": 735.174, "vesta/anemoi_2_1": 1432.368, "bls12_381/anemoi_4_3": 1548.179,
-                 "vesta/anemoi_4_3, 65536": 2389.790}
-PR7_E2E_MS = {"vesta/anemoi_4_3": 1337.3, "bls12_381/anemoi_4_3": 2180.6}
+                 (12, "permute_kernel<4>"): 144, (12, "permute_kernel<2>"): 90,
+                 (12, "sponge_kernel<2>"): 56, (12, "sponge_kernel<4>"): 78}
+EARLIER_MS = {"jive vesta": 199.184, "root vesta": 265.543, "jive bls12_381": 719.984, "root bls12_381": 941.254,
+          "jive bls12_377": 696.045, "permutation vesta/anemoi_4_3": 6.373, "permutation bls12_381/anemoi_4_3": 21.262,
+          "sponge vesta/anemoi_4_3": 471.496, "sponge vesta/anemoi_2_1": 1205.551,
+          "sponge bls12_381/anemoi_4_3": 852.134, "sponge vesta/anemoi_4_3, 65536": 3474.261,
+          "e2e vesta/anemoi_4_3": 1051.6, "e2e bls12_381/anemoi_4_3": 1510.4}
+PERM_SWEEP = (4096, 8192, 16384, 65536)  # the crossover sweep: both permutation kernels at each N
+N_STREAMS = 1 << 16  # BatchedSponge's second path: a batch above the crossover, for the one-thread kernel
+STREAM_BLOCKS = 8  # rate-blocks it absorbs, then a tail of one element
+
+
+def was(key: str, ms: float) -> str:
+    """This run's time beside the earlier kernels'."""
+    return f"earlier: {EARLIER_MS[key]} ms, {EARLIER_MS[key] / ms:.3f}x"
 
 
 def golden_hash_bytes(args) -> list:
@@ -259,8 +291,10 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
-    max_err = dict.fromkeys(["jive", "permutation", "sponge", "jive_w12", "permutation_w12", "sponge_w12",
-                             "sqr_chain", "mad_loop"], 0)
+    plain_times = {}  # the plain versions' ms, phases 6 and 9
+    plain_lanes = {}  # words: the lanes of the 4_3 permutation's plain call, phases 6 and 9
+    max_err = dict.fromkeys(["jive", "permutation", "permutation_thread", "sponge", "jive_w12", "permutation_w12",
+                             "permutation_thread_w12", "sponge_w12", "sqr_chain", "mad_loop"], 0)
 
     def canonical_states(inst, n):
         """int32 [WIDTH, L, n] random canonical states on the card."""
@@ -301,6 +335,110 @@ def main() -> int:
         """int32 [rows*L, n] random canonical limb rows on the card."""
         return torch.from_numpy(random_canonical(inst.field, (rows, n), rng).transpose(1, 0, 2).copy()) \
             .reshape(rows * inst.field.n_limbs, n).to(dev)
+
+    def perm_key(group: bool, words: int) -> str:
+        """The kernels line's name: "permutation" for the four-lane kernel,
+        which BatchedSponge's 4,096 states run, "permutation_thread" for the
+        one-thread one."""
+        return ("permutation" if group else "permutation_thread") + ("_w12" if words == 12 else "")
+
+    def ends(n: int):
+        """N_PLAIN lanes at both ends of n (all of them when n is smaller)."""
+        return torch.cat([torch.arange(min(n, N_PLAIN // 2)),
+                          torch.arange(max(n - (N_PLAIN - N_PLAIN // 2), 0), n)]).unique()
+
+    def hold_permutation(inst) -> tuple[float, int]:
+        """Both permutation kernels against the plain version, bit for bit:
+        through ``permutation`` at N = 5 (under one warp's 8 states), N_CHECK,
+        the crossover X, X - 3 (ragged, the four-lane kernel), X + 1 (ragged,
+        the one-thread kernel) and N_MSGS_FILL (the one-thread kernel at the
+        N of BatchedSponge's second path), and through ``permutation_with``
+        each kernel at N_CHECK.  Every N is a prefix of the same states, so
+        one plain call over the lanes held (both ends of each N) covers them
+        all.  Returns that call's ms and its lanes."""
+        words = inst.field.kernel_words
+        top = cuda_backend.permute_group_max(words)
+        ns = sorted({5, N_CHECK, top - 3, top, top + 1, N_MSGS_FILL})
+        x = canonical_rows(inst, inst.width, ns[-1])
+        cols = torch.cat([ends(n) for n in ns]).unique()
+        plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, cols.to(dev)].contiguous()))
+        at = {int(c): i for i, c in enumerate(cols)}
+        runs = [(n, n <= top, "permutation", cuda_backend.permutation(inst, x[:, :n].contiguous())) for n in ns]
+        runs += [(N_CHECK, g, "permutation_with", cuda_backend.permutation_with(inst, x[:, :N_CHECK].contiguous(), g))
+                 for g in (True, False)]
+        for n, group, how, out in runs:
+            held_cols = ends(n)
+            what = f"{inst.qualified_name} permutation, N = {n}, {'four-lane' if group else 'one-thread'} kernel"
+            held(out[:, held_cols.to(dev)], plain[:, torch.tensor([at[int(c)] for c in held_cols], device=dev)], what,
+                 perm_key(group, words))
+            print(f"  {what} (through {how}): {len(held_cols)} lanes held against the plain version: identical",
+                  flush=True)
+        print(f"  the plain version on all {len(cols)} lanes held: {plain_ms / 1e3:.2f} s", flush=True)
+        return plain_ms, len(cols)
+
+    def run_stream(inst, mont, chunks):
+        """BatchedSponge over int32 [E, L, B] elements: the rate-aligned chunks
+        of `chunks` rate-blocks each, then the rest as the tail."""
+        stream = BatchedSponge(inst, mont.shape[-1], device=dev)
+        start = 0
+        for n in chunks:
+            stream.absorb(mont[start:start + n * inst.rate])
+            start += n * inst.rate
+        return stream.finalize(mont[start:])
+
+    def random_on_card(inst, rows: int, n: int, seed: int):
+        """int32 [rows, L, n] random canonical elements made on the card."""
+        L = inst.field.n_limbs
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randint(0, 1 << 13, (rows, L, n), generator=gen, device=dev, dtype=torch.int32)
+        x[:, L - 1] &= (1 << (inst.field.p.bit_length() - 1 - 13 * (L - 1))) - 1  # below 2^(bits(p) - 1)
+        return x
+
+    def perm_sweep(inst) -> dict:
+        """Both permutation kernels at each N of PERM_SWEEP ({N: {group: ms}},
+        CUDA events), printed as a table beside the library's crossover."""
+        x = canonical_rows(inst, inst.width, PERM_SWEEP[-1])
+        top = cuda_backend.permute_group_max(inst.field.kernel_words)
+        times = {}
+        print(f"  the crossover, {inst.qualified_name} ({REPS} calls of each kernel after a warm-up, CUDA events; "
+              f"{smi}):\n    N | four-lane ms | one-thread ms | one-thread / four-lane | permutation() runs",
+              flush=True)
+        for n in PERM_SWEEP:
+            xn = x[:, :n].contiguous()
+            t = times[n] = {g: mb.event_ms(lambda: cuda_backend.permutation_with(inst, xn, g), REPS)
+                            for g in (True, False)}
+            print(f"    {n} | {t[True]:.3f} | {t[False]:.3f} | {t[False] / t[True]:.3f} | "
+                  f"{'four-lane' if n <= top else 'one-thread'}", flush=True)
+        wins = [n for n in PERM_SWEEP if times[n][True] < times[n][False]]
+        best = max(wins) if wins else None
+        print(f"  the largest N at which the four-lane kernel wins: {best}; the library's crossover "
+              f"(PERMUTE_GROUP_MAX): {top}, {'the same' if best == top else 'DIFFERS'}", flush=True)
+        return times
+
+    def thread_path(inst, elems, what: str) -> tuple[int, dict]:
+        """BatchedSponge's second path: N_MSGS_FILL streams, above the
+        crossover, so its permutations run the one-thread kernel:
+        STREAM_BLOCKS rate-blocks and a tail of one element, the launch
+        counts set to 0 just before and read just after; the digests held
+        against the sponge kernel over the same elements.  Returns the
+        one-thread launches, and the bound of one launch."""
+        L, n = inst.field.n_limbs, elems.shape[-1]
+        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
+            counter.launches = 0
+        cuda_backend.permutation.group_launches = 0
+        digest = run_stream(inst, elems, [STREAM_BLOCKS])
+        torch.cuda.synchronize()
+        total, group = cuda_backend.permutation.launches, cuda_backend.permutation.group_launches
+        print(f"  main path: BatchedSponge over {n} {what} streams of {elems.shape[0]} elements (a chunk of "
+              f"{STREAM_BLOCKS} rate-blocks and a tail of 1): {total} permutation launches, {group} of them four-lane, "
+              f"{cuda_backend.sponge.launches} sponge launches", flush=True)
+        if total != STREAM_BLOCKS + 1 or group != 0:
+            fail(f"BatchedSponge over {n} streams took {total} permutation launches, {group} four-lane")
+        want = cuda_backend.sponge(inst, elems.shape[0], elems.reshape(-1, n).contiguous())
+        held(digest.reshape(L, n), want, f"BatchedSponge over {n} streams against the sponge kernel",
+             perm_key(False, inst.field.kernel_words))
+        print("  its digests equal the sponge kernel's over the same elements", flush=True)
+        return total - group, bound(inst, n, n * 2 * inst.width * L * 4)
 
     def sage_jive(fields) -> None:
         for field in fields:
@@ -371,24 +509,41 @@ def main() -> int:
                 print(f"  {line}", flush=True)
         print(f"builds and loads, all {len(builds) + 1} at once (with the host packer): {build_s:.2f} s", flush=True)
         sponge_lanes = sponge_lib.cdll.anemoi_sponge_lanes()
-        print(f"kernels by ptxas (registers, spill store and load bytes) and SASS (instructions, local-memory "
-              f"loads and stores, shuffles, votes, IMADs; cuobjdump -sass); the sponge runs {sponge_lanes} lanes "
-              f"per message:", flush=True)
+        crossover = {w: cuda_backend.permute_group_max(w) for w in cuda_backend.KERNEL_WORDS}
+        print(f"kernels by ptxas (registers, spill store and load bytes), resident blocks of 128 threads per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor) and SASS (instructions, local-memory loads and "
+              f"stores, shuffles, votes, IMADs; cuobjdump -sass); the sponge and the four-lane permutation run "
+              f"{sponge_lanes} lanes per message or state; the permutation launches its four-lane kernel up to "
+              f"{crossover[8]} states at 8 words and {crossover[12]} at 12:", flush=True)
+
+        def blocks_per_sm(b, name: str) -> int:
+            kernel, args = name.split("<")
+            args = [int(a) for a in args.rstrip(">").split(",")]
+            if kernel == "jive_kernel":
+                return b.cdll.anemoi_jive_blocks_per_sm(*args)
+            which = {"permute_kernel": 0, "permute_group_kernel": 1, "sponge_kernel": 2}[kernel]
+            return b.cdll.anemoi_sponge_blocks_per_sm(which, *args)
+
         for words, libs in ((8, (lib, sponge_lib)), (12, (lib12, sponge_lib12))):
             for b in libs:
                 counts = sass.kernel_counts(b.path)
                 for name, (regs, st, ld) in sorted(sass.ptxas_table(b.ptxas).items()):
-                    was = PR7_REGISTERS.get((words, name))
+                    before = EARLIER_REGISTERS.get((words, name))
                     c = counts.get(name, {})
                     print(f"  {words} words, {name}: {regs} registers, spills {st}/{ld} bytes"
-                          + ("" if was is None else f" (PR 7: {was}, {'the same' if was == regs else 'CHANGED'})")
-                          + f"; SASS {c.get('instructions')} instructions, LDL {c.get('LDL')}, STL {c.get('STL')}, "
-                          f"SHFL {c.get('SHFL')}, VOTE {c.get('VOTE')}, IMAD {c.get('IMAD')}", flush=True)
-                    if name.startswith("sponge_kernel"):
+                          + (" (new)" if before is None else
+                             f" (earlier: {before}, {'the same' if before == regs else 'changed'})")
+                          + f"; {blocks_per_sm(b, name)} blocks per SM; SASS {c.get('instructions')} instructions, "
+                          f"LDL {c.get('LDL')}, STL {c.get('STL')}, SHFL {c.get('SHFL')}, VOTE {c.get('VOTE')}, "
+                          f"IMAD {c.get('IMAD')}", flush=True)
+                    if name.startswith(("jive_kernel", "permute_kernel")) and st + ld:
+                        fail(f"{name} at {words} words spills ({st}/{ld} bytes): the one-thread kernels build "
+                             f"without spills")
+                    if name.startswith(("sponge_kernel", "permute_group_kernel")):
                         lp = c["loop"]
                         print(f"    its innermost loop (a ladder trip: one {sponge_lanes}-lane product of each "
-                              f"column): {lp['instructions']} instructions, SHFL {lp['SHFL']}, VOTE {lp['VOTE']}, "
-                              f"IMAD {lp['IMAD']}", flush=True)
+                              f"column): {lp['instructions']} instructions, LDL {lp['LDL']}, STL {lp['STL']}, "
+                              f"SHFL {lp['SHFL']}, VOTE {lp['VOTE']}, IMAD {lp['IMAD']}", flush=True)
 
     # 3 ---------------------------------------------------------------------
     if run(3):
@@ -455,8 +610,11 @@ def main() -> int:
             fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
 
         jive_ms = ms = mb.event_ms(lambda: compress(states), REPS)
+        jive_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
         print(f"  Jive 2-to-1, {N_FULL} states: {ms:.3f} ms per call, {ms * 1e3 / N_FULL:.4f} us per hash, "
-              f"{N_FULL / (ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)", flush=True)
+              f"{N_FULL / (ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up; "
+              f"{was('jive vesta', ms)})", flush=True)
+        show_bound(f"vesta/anemoi_2_1 Jive, {N_FULL} states", jive_bound, jive_ms)
 
         sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
         xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
@@ -467,7 +625,8 @@ def main() -> int:
 
         root_ms, root2 = host_time_ms(lambda: tree.root(leaves))
         held(root2, root, "2^20 root, repeated")
-        print(f"  Merkle root over {N_FULL} leaves: {root_ms:.3f} ms ({smi}; host clock, synchronized)", flush=True)
+        print(f"  Merkle root over {N_FULL} leaves: {root_ms:.3f} ms ({smi}; host clock, synchronized; "
+              f"{was('root vesta', root_ms)})", flush=True)
 
         # the root's levels again, with the call tree.root makes for each; up to
         # N_SAMPLE columns of every level (all of the small ones) go to the plain
@@ -495,16 +654,8 @@ def main() -> int:
     # 6 ---------------------------------------------------------------------
     if run(6):
         phase("6 permutation and sponge kernels vs plain version")
-        plain_times = {}
         for iname in ("anemoi_2_1", "anemoi_4_3"):
-            inst = get_instance("vesta", iname)
-            x = canonical_rows(inst, inst.width, N_CHECK)
-            out = cuda_backend.permutation(inst, x)
-            plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, lanes].contiguous()))
-            plain_times[("permutation", iname)] = plain_ms
-            held(out[:, lanes], plain, f"vesta/{iname} permutation", "permutation")
-            print(f"  permutation, vesta/{iname}: {N_CHECK} states, {N_PLAIN} held against the plain version "
-                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+            plain_times[("permutation", iname)], plain_lanes[8] = hold_permutation(get_instance("vesta", iname))
         # 1,024 messages all held; then 4,099, which fill neither the last warp (8 messages) nor the last
         # block (32), with 257 held at both ends
         for iname, E, n in (("anemoi_4_3", 3, N_SPONGE_PLAIN), ("anemoi_4_3", 4, N_CHECK), ("anemoi_2_1", 2, N_CHECK)):
@@ -544,31 +695,32 @@ def main() -> int:
 
         for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
             counter.launches = 0
+        cuda_backend.permutation.group_launches = 0
         first_ms, full = {}, {}
         for iname, obj in objs.items():
             first_ms[iname], full[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
         sponge_launches = cuda_backend.sponge.launches
-        stream = BatchedSponge(objs["anemoi_4_3"].params, N_MSGS, device=dev)
-        mont = mont_messages(objs["anemoi_4_3"].params, pack_messages(objs["anemoi_4_3"].params, msgs), dev)
-        start = 0
-        for n in chunks:
-            stream.absorb(mont[start:start + n * rate43])
-            start += n * rate43
-        streamed = stream.finalize(mont[start:])
+        inst = objs["anemoi_4_3"].params
+        mont = mont_messages(inst, pack_messages(inst, msgs), dev)
+        streamed = run_stream(inst, mont, chunks)
         torch.cuda.synchronize()
         perm_launches = cuda_backend.permutation.launches
+        perm_group_launches = cuda_backend.permutation.group_launches
         print(f"  main path: hash_bytes for vesta/anemoi_4_3 and vesta/anemoi_2_1 over {N_MSGS} x {MSG_BYTES} bytes "
               f"({E} elements each), BatchedSponge over the 4_3 messages in chunks of {chunks} rate-blocks and a "
-              f"tail of {E - start}: {sponge_launches} sponge launches, {perm_launches} permutation launches, "
-              f"{cuda_backend.jive.launches} Jive launches", flush=True)
+              f"tail of {E - sum(chunks) * rate43}: {sponge_launches} sponge launches, {perm_launches} permutation "
+              f"launches ({perm_group_launches} four-lane), {cuda_backend.jive.launches} Jive launches", flush=True)
         if sponge_launches != len(objs):
             fail(f"hash_bytes took {sponge_launches} sponge launches for {len(objs)} calls")
         if perm_launches != blocks + (E % rate43 > 0):
             fail(f"BatchedSponge took {perm_launches} permutation launches for {blocks} blocks and a tail")
+        if perm_group_launches != (perm_launches if N_MSGS <= crossover[8] else 0):
+            fail(f"{perm_group_launches} of {perm_launches} permutation launches went to the four-lane kernel")
         for iname, out in full.items():
             if out.shape != (1, L, N_MSGS):
                 fail(f"{iname}: digests of shape {out.shape}")
-        held(streamed.cpu(), torch.from_numpy(full["anemoi_4_3"]), "BatchedSponge against hash_bytes", "permutation")
+        held(streamed.cpu(), torch.from_numpy(full["anemoi_4_3"]), "BatchedSponge against hash_bytes",
+             perm_key(N_MSGS <= crossover[8], 8))
         print("  BatchedSponge digests equal hash_bytes's", flush=True)
 
         sponge_ms, sponge_bound, e2e_ms = {}, {}, {}
@@ -598,10 +750,9 @@ def main() -> int:
             print(f"  vesta/{iname}: sponge kernel over the first " + ", ".join(
                 f"{n} messages {t:.3f} ms" for n, t in part.items()) + f"; {N_MSGS}: {ms:.3f} ms", flush=True)
             key = f"vesta/{iname}"
-            print(f"  vesta/{iname}, {sponge_lanes} lanes per message: kernel {ms:.3f} ms against PR 7's "
-                  f"{PR7_SPONGE_MS[key]} ms (one lane per message), {PR7_SPONGE_MS[key] / ms:.3f}x; end to end "
-                  f"{e2e_ms[iname]:.1f} ms" + (f" against PR 7's {PR7_E2E_MS[key]} ms" if key in PR7_E2E_MS else ""),
-                  flush=True)
+            print(f"  vesta/{iname}, unchanged: kernel {ms:.3f} ms ({was('sponge ' + key, ms)}); end to end "
+                  f"{e2e_ms[iname]:.1f} ms" + (f" ({was('e2e ' + key, e2e_ms[iname])})" if 'e2e ' + key in EARLIER_MS
+                                               else ""), flush=True)
 
         # the golden model over sampled messages, in one worker process per core
         # (a 10 KB message takes it 0.5 to 1 s)
@@ -616,20 +767,15 @@ def main() -> int:
 
         # the card filled: 65,536 Vesta 4_3 messages made on the card, kernel alone
         inst = objs["anemoi_4_3"].params
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        big = torch.randint(0, 1 << 13, (E, L, N_MSGS_FILL), generator=gen, device=dev, dtype=torch.int32)
-        top = L - 1  # clear every bit from 2^(bits(p) - 1) up: canonical values
-        big[:, top] &= (1 << (inst.field.p.bit_length() - 1 - 13 * top)) - 1
-        big = big.reshape(E * L, N_MSGS_FILL)
+        big = random_on_card(inst, E, N_MSGS_FILL, args.seed).reshape(E * L, N_MSGS_FILL)
         fill_ms = mb.event_ms(lambda: cuda_backend.sponge(inst, E, big), 2)
         fill_bound = bound(inst, N_MSGS_FILL * -(-E // inst.rate), N_MSGS_FILL * (E + 1) * L * 4)
         print(f"  vesta/anemoi_4_3, {N_MSGS_FILL} messages made on the card: sponge kernel {fill_ms:.3f} ms "
               f"(2 calls after a warm-up, CUDA events), {N_MSGS_FILL / (fill_ms / 1e3):.1f} msgs/s; at {N_MSGS} "
               f"messages {N_MSGS / (sponge_ms['anemoi_4_3'] / 1e3):.1f} msgs/s ({smi})", flush=True)
         show_bound(f"vesta/anemoi_4_3 sponge, {N_MSGS_FILL} messages", fill_bound, fill_ms)
-        was = PR7_SPONGE_MS["vesta/anemoi_4_3, 65536"]
-        print(f"  {N_MSGS_FILL} messages, {sponge_lanes} lanes per message: kernel {fill_ms:.3f} ms against PR 7's "
-              f"{was} ms (one lane per message), {was / fill_ms:.3f}x", flush=True)
+        print(f"  {N_MSGS_FILL} messages, unchanged: kernel {fill_ms:.3f} ms "
+              f"({was('sponge vesta/anemoi_4_3, 65536', fill_ms)})", flush=True)
         fill_out = cuda_backend.sponge(inst, E, big)
         cols = [0, 1, N_MSGS_FILL // 2, N_MSGS_FILL - 1]
         elems = big.reshape(E, L, N_MSGS_FILL)[:, :, cols].cpu()
@@ -638,15 +784,27 @@ def main() -> int:
             if lo.decode_ints(fill_out[:, col:col + 1], inst.field) != golden.hash_field(inst, message):
                 fail(f"65,536-message sponge: lane {col} differs from the golden model")
         print(f"  lanes {cols} held against the golden model: identical", flush=True)
+        perm_thread_launches, perm_thread_bound = thread_path(
+            inst, big.reshape(E, L, N_MSGS_FILL)[:STREAM_BLOCKS * rate43 + 1], "random")
+        perm_thread_launches += perm_launches - perm_group_launches
         del big, fill_out
 
-        # the permutation at the shape BatchedSponge gives it
+        # the permutation at the shape BatchedSponge gives it, both kernels at 4,096 to 65,536 states
         x = canonical_rows(inst, inst.width, N_MSGS)
         perm_ms = mb.event_ms(lambda: cuda_backend.permutation(inst, x), REPS)
         perm_bound = bound(inst, N_MSGS, N_MSGS * 2 * inst.width * L * 4)
         print(f"  permutation, vesta/anemoi_4_3, {N_MSGS} states: {perm_ms:.3f} ms ({REPS} calls after a warm-up, "
-              f"CUDA events)", flush=True)
+              f"CUDA events; {was('permutation vesta/anemoi_4_3', perm_ms)}; {smi})", flush=True)
         show_bound(f"vesta/anemoi_4_3 permutation, {N_MSGS} states", perm_bound, perm_ms)
+        sweep = perm_sweep(inst)
+        perm_thread_ms = sweep[N_MSGS_FILL][False]
+        show_bound(f"vesta/anemoi_4_3 one-thread permutation, {N_MSGS_FILL} states", perm_thread_bound, perm_thread_ms)
+        stream_ms = host_time_ms(lambda: run_stream(inst, mont, chunks))[0]
+        print(f"  BatchedSponge end to end over the {N_MSGS} x {MSG_BYTES}-byte elements already on the card: "
+              f"{stream_ms:.1f} ms (host clock, synchronized, the second call); its {perm_launches} permutation "
+              f"launches at {perm_ms:.3f} ms: {perm_launches * perm_ms:.1f} ms; the rest (the rate adds, stacking, "
+              f"launches): {stream_ms - perm_launches * perm_ms:.1f} ms", flush=True)
+        del mont
 
     # 9 ---------------------------------------------------------------------
     if run(9):
@@ -662,14 +820,8 @@ def main() -> int:
             print(f"  Jive, {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
                   f"({plain_ms / 1e3:.2f} s): identical", flush=True)
         for iname in ("anemoi_2_1", "anemoi_4_3"):
-            inst = get_instance("bls12_377", iname)
-            x = canonical_rows(inst, inst.width, N_CHECK)
-            out = cuda_backend.permutation(inst, x)
-            plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, lanes].contiguous()))
-            plain_times[("permutation_w12", iname)] = plain_ms
-            held(out[:, lanes], plain, f"bls12_377/{iname} permutation", "permutation_w12")
-            print(f"  permutation, bls12_377/{iname}: {N_CHECK} states, {N_PLAIN} held against the plain version "
-                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+            plain_times[("permutation_w12", iname)], plain_lanes[12] = hold_permutation(
+                get_instance("bls12_377", iname))
         for iname, E in (("anemoi_4_3", 3), ("anemoi_4_3", 4), ("anemoi_2_1", 2)):
             inst = get_instance("bls12_381", iname)
             m = canonical_rows(inst, E, N_CHECK)
@@ -712,9 +864,11 @@ def main() -> int:
             fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
 
         jive12_ms = mb.event_ms(lambda: compress(states), REPS)
+        jive12_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
         print(f"  Jive 2-to-1, {N_FULL} states: {jive12_ms:.3f} ms per call, {jive12_ms * 1e3 / N_FULL:.4f} us per hash, "
-              f"{N_FULL / (jive12_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)",
-              flush=True)
+              f"{N_FULL / (jive12_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up; "
+              f"{was('jive bls12_381', jive12_ms)})", flush=True)
+        show_bound(f"bls12_381/anemoi_2_1 Jive, {N_FULL} states", jive12_bound, jive12_ms)
         sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
         xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
         jive12_plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, 2, xs))
@@ -727,7 +881,8 @@ def main() -> int:
         if len(levels) != tree.num_levels(N_FULL) + 1 or not torch.equal(levels[-1], root):
             fail("return_levels: wrong levels")
         print(f"  Merkle root over {N_FULL} leaves with return_levels: {root12_ms:.3f} ms ({smi}; host clock, "
-              f"synchronized); {len(levels)} levels on {levels[1].device}", flush=True)
+              f"synchronized; {was('root bls12_381', root12_ms)}); {len(levels)} levels on {levels[1].device}",
+              flush=True)
         picks = [0, N_FULL - 1] + sorted(rng.choice(np.arange(1, N_FULL - 1), N_PROOFS - 2, replace=False).tolist())
         prove_ms = time.perf_counter()
         for idx in picks:
@@ -749,8 +904,8 @@ def main() -> int:
         jive377_ms = mb.event_ms(lambda: compress(states), REPS)
         jive377_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
         print(f"  BLS12-377 Jive 2-to-1, {N_FULL} states: {jive377_ms:.3f} ms per call, "
-              f"{N_FULL / (jive377_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up)",
-              flush=True)
+              f"{N_FULL / (jive377_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up; "
+              f"{was('jive bls12_377', jive377_ms)})", flush=True)
         show_bound(f"bls12_377/anemoi_2_1 Jive, {N_FULL} states", jive377_bound, jive377_ms)
         cols = np.sort(rng.choice(N_FULL, N_GOLDEN_JIVE, replace=False))
         ins = decode_states(inst, states[:, :, torch.from_numpy(cols).to(dev)])
@@ -797,30 +952,29 @@ def main() -> int:
 
         for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
             counter.launches = 0
+        cuda_backend.permutation.group_launches = 0
         first12_ms, full12 = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
         sponge12_launches = cuda_backend.sponge.launches
-        stream = BatchedSponge(inst, N_MSGS, device=dev)
         mont = mont_messages(inst, pack_messages(inst, msgs), dev)
-        start = 0
-        for n in chunks:
-            stream.absorb(mont[start:start + n * rate])
-            start += n * rate
-        streamed = stream.finalize(mont[start:])
+        streamed = run_stream(inst, mont, chunks)
         torch.cuda.synchronize()
         perm12_launches = cuda_backend.permutation.launches
+        perm12_group_launches = cuda_backend.permutation.group_launches
         print(f"  main path: hash_bytes for bls12_381/anemoi_4_3 over {N_MSGS} x {MSG_BYTES} bytes ({E} elements "
-              f"each), BatchedSponge in chunks of {chunks} rate-blocks and a tail of {E - start}: {sponge12_launches} "
-              f"sponge launch, {perm12_launches} permutation launches, {cuda_backend.jive.launches} Jive launches",
-              flush=True)
+              f"each), BatchedSponge in chunks of {chunks} rate-blocks and a tail of {E - sum(chunks) * rate}: "
+              f"{sponge12_launches} sponge launch, {perm12_launches} permutation launches ({perm12_group_launches} "
+              f"four-lane), {cuda_backend.jive.launches} Jive launches", flush=True)
         if sponge12_launches != 1:
             fail(f"hash_bytes took {sponge12_launches} sponge launches for one call")
         if perm12_launches != blocks + (E % rate > 0):
             fail(f"BatchedSponge took {perm12_launches} permutation launches for {blocks} blocks and a tail")
+        if perm12_group_launches != (perm12_launches if N_MSGS <= crossover[12] else 0):
+            fail(f"{perm12_group_launches} of {perm12_launches} permutation launches went to the four-lane kernel")
         if full12.shape != (1, L, N_MSGS):
             fail(f"digests of shape {full12.shape}")
-        held(streamed.cpu(), torch.from_numpy(full12), "BLS12-381 BatchedSponge against hash_bytes", "permutation_w12")
+        held(streamed.cpu(), torch.from_numpy(full12), "BLS12-381 BatchedSponge against hash_bytes",
+             perm_key(N_MSGS <= crossover[12], 12))
         print("  BatchedSponge digests equal hash_bytes's", flush=True)
-        del mont, stream
 
         e2e12_ms = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
         pack12_ms = time.perf_counter()
@@ -837,10 +991,9 @@ def main() -> int:
               f"{N_MSGS * MSG_BYTES / (e2e12_ms / 1e3) / 1e6:.3f} MB/s end to end; kernel alone "
               f"{N_MSGS / (sponge12_ms / 1e3):.1f} msgs/s ({smi})", flush=True)
         show_bound(f"bls12_381/anemoi_4_3 sponge, {N_MSGS} messages", sponge12_bound, sponge12_ms)
-        was, was_e2e = PR7_SPONGE_MS["bls12_381/anemoi_4_3"], PR7_E2E_MS["bls12_381/anemoi_4_3"]
-        print(f"  bls12_381/anemoi_4_3, {sponge_lanes} lanes per message: kernel {sponge12_ms:.3f} ms against PR 7's "
-              f"{was} ms (one lane per message), {was / sponge12_ms:.3f}x; end to end {e2e12_ms:.1f} ms against "
-              f"PR 7's {was_e2e} ms", flush=True)
+        print(f"  bls12_381/anemoi_4_3, unchanged: kernel {sponge12_ms:.3f} ms "
+              f"({was('sponge bls12_381/anemoi_4_3', sponge12_ms)}); end to end {e2e12_ms:.1f} ms "
+              f"({was('e2e bls12_381/anemoi_4_3', e2e12_ms)})", flush=True)
         del x
 
         picks = sorted(rng.choice(N_MSGS, N_GOLDEN, replace=False).tolist())
@@ -850,13 +1003,28 @@ def main() -> int:
             fail("bls12_381/anemoi_4_3: sampled 10 KB digests differ from the golden model")
         print(f"  {N_GOLDEN} sampled messages held against the golden model: identical", flush=True)
 
-        # the permutation at the shape BatchedSponge gives it
+        # BatchedSponge above the crossover: the one-thread kernel's path
+        perm12_thread_launches, perm12_thread_bound = thread_path(
+            inst, random_on_card(inst, STREAM_BLOCKS * rate + 1, N_MSGS_FILL, args.seed + 1), "random")
+        perm12_thread_launches += perm12_launches - perm12_group_launches
+
+        # the permutation at the shape BatchedSponge gives it, both kernels at 4,096 to 65,536 states
         x = canonical_rows(inst, inst.width, N_MSGS)
         perm12_ms = mb.event_ms(lambda: cuda_backend.permutation(inst, x), REPS)
         perm12_bound = bound(inst, N_MSGS, N_MSGS * 2 * inst.width * L * 4)
         print(f"  permutation, bls12_381/anemoi_4_3, {N_MSGS} states: {perm12_ms:.3f} ms ({REPS} calls after a "
-              f"warm-up, CUDA events)", flush=True)
+              f"warm-up, CUDA events; {was('permutation bls12_381/anemoi_4_3', perm12_ms)}; {smi})", flush=True)
         show_bound(f"bls12_381/anemoi_4_3 permutation, {N_MSGS} states", perm12_bound, perm12_ms)
+        sweep12 = perm_sweep(inst)
+        perm12_thread_ms = sweep12[N_MSGS_FILL][False]
+        show_bound(f"bls12_381/anemoi_4_3 one-thread permutation, {N_MSGS_FILL} states", perm12_thread_bound,
+                   perm12_thread_ms)
+        stream12_ms = host_time_ms(lambda: run_stream(inst, mont, chunks))[0]
+        print(f"  BatchedSponge end to end over the {N_MSGS} x {MSG_BYTES}-byte elements already on the card: "
+              f"{stream12_ms:.1f} ms (host clock, synchronized, the second call); its {perm12_launches} permutation "
+              f"launches at {perm12_ms:.3f} ms: {perm12_launches * perm12_ms:.1f} ms; the rest (the rate adds, "
+              f"stacking, launches): {stream12_ms - perm12_launches * perm12_ms:.1f} ms", flush=True)
+        del mont
 
     # 14 --------------------------------------------------------------------
     if run(14):
@@ -903,12 +1071,6 @@ def main() -> int:
     # 15 --------------------------------------------------------------------
     if run(15):
         phase("15 kernels")
-        inst = get_instance("vesta", "anemoi_2_1")
-        jive_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * inst.field.n_limbs * 4)
-        show_bound(f"vesta/anemoi_2_1 Jive, {N_FULL} states", jive_bound, jive_ms)
-        inst = get_instance("bls12_381", "anemoi_2_1")
-        jive12_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * inst.field.n_limbs * 4)
-        show_bound(f"bls12_381/anemoi_2_1 Jive, {N_FULL} states", jive12_bound, jive12_ms)
         jive43_bound = bound(get_instance("bls12_381", "anemoi_4_3"), N_FULL, 0)
         print(f"  bound, bls12_381/anemoi_4_3 Jive, {N_FULL} states (not run at full size): "
               f"{jive43_bound['ops_ms']:.3f} ms", flush=True)
@@ -924,8 +1086,12 @@ def main() -> int:
                             ("vesta/anemoi_4_3 sponge, 4,096 x 10 KB", sponge_bound["anemoi_4_3"],
                              sponge_ms["anemoi_4_3"]),
                             ("bls12_381/anemoi_4_3 sponge, 4,096 x 10 KB", sponge12_bound, sponge12_ms),
-                            ("vesta/anemoi_4_3 permutation", perm_bound, perm_ms),
-                            ("bls12_381/anemoi_4_3 permutation", perm12_bound, perm12_ms)):
+                            ("vesta/anemoi_4_3 permutation, 4,096 states, four-lane", perm_bound, perm_ms),
+                            ("bls12_381/anemoi_4_3 permutation, 4,096 states, four-lane", perm12_bound, perm12_ms),
+                            ("vesta/anemoi_4_3 permutation, 65,536 states, one-thread", perm_thread_bound,
+                             perm_thread_ms),
+                            ("bls12_381/anemoi_4_3 permutation, 65,536 states, one-thread", perm12_thread_bound,
+                             perm12_thread_ms)):
             at_measured = b["ops_ms"] * IMAD_PER_CLOCK_PER_SM / mad_rate
             print(f"    {what}: {ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_ms'] / ms:.1%}); at the measured "
                   f"rate {at_measured:.3f} ms ({at_measured / ms:.1%})", flush=True)
@@ -941,8 +1107,15 @@ def main() -> int:
                   jive_ms, jive_plain_ms, jive_bound, words=8, lanes=N_FULL, plain_lanes=N_SAMPLE, root_ms=root_ms,
                   build_s=lib.build_seconds),
             entry("permutation", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
-                  perm_launches, perm_ms, plain_times[("permutation", "anemoi_4_3")], perm_bound, words=8,
-                  instance="vesta/anemoi_4_3", lanes=N_MSGS, plain_lanes=N_PLAIN, build_s=sponge_lib.build_seconds),
+                  perm_group_launches, perm_ms, plain_times[("permutation", "anemoi_4_3")], perm_bound, words=8,
+                  kernel="permute_group_kernel", instance="vesta/anemoi_4_3", lanes=N_MSGS,
+                  plain_lanes=plain_lanes[8], crossover=crossover[8],
+                  sweep={n: {"four_lane_ms": t[True], "one_thread_ms": t[False]} for n, t in sweep.items()},
+                  batched_sponge_ms=stream_ms, build_s=sponge_lib.build_seconds),
+            entry("permutation_thread", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
+                  perm_thread_launches, perm_thread_ms, plain_times[("permutation", "anemoi_4_3")], perm_thread_bound,
+                  words=8, kernel="permute_kernel", instance="vesta/anemoi_4_3", lanes=N_MSGS_FILL,
+                  plain_lanes=plain_lanes[8], crossover=crossover[8], build_s=sponge_lib.build_seconds),
             entry("sponge", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
                   sponge_launches, sponge_ms["anemoi_4_3"], plain_times[("sponge", "anemoi_4_3", 4)],
                   sponge_bound["anemoi_4_3"], words=8, instance="vesta/anemoi_4_3", messages=N_MSGS,
@@ -955,9 +1128,16 @@ def main() -> int:
                   plain_lanes=N_SAMPLE, root_ms=root12_ms, ms_bls12_377=jive377_ms,
                   bound_ms_bls12_377=jive377_bound["bound_ms"], build_s=lib12.build_seconds),
             entry("permutation_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
-                  perm12_launches, perm12_ms, plain_times[("permutation_w12", "anemoi_4_3")], perm12_bound, words=12,
-                  instance="bls12_381/anemoi_4_3", lanes=N_MSGS, plain_instance="bls12_377/anemoi_4_3",
-                  plain_lanes=N_PLAIN, build_s=sponge_lib12.build_seconds),
+                  perm12_group_launches, perm12_ms, plain_times[("permutation_w12", "anemoi_4_3")], perm12_bound,
+                  words=12, kernel="permute_group_kernel", instance="bls12_381/anemoi_4_3", lanes=N_MSGS,
+                  plain_instance="bls12_377/anemoi_4_3", plain_lanes=plain_lanes[12], crossover=crossover[12],
+                  sweep={n: {"four_lane_ms": t[True], "one_thread_ms": t[False]} for n, t in sweep12.items()},
+                  batched_sponge_ms=stream12_ms, build_s=sponge_lib12.build_seconds),
+            entry("permutation_thread_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
+                  perm12_thread_launches, perm12_thread_ms, plain_times[("permutation_w12", "anemoi_4_3")],
+                  perm12_thread_bound, words=12, kernel="permute_kernel", instance="bls12_381/anemoi_4_3",
+                  lanes=N_MSGS_FILL, plain_instance="bls12_377/anemoi_4_3", plain_lanes=plain_lanes[12],
+                  crossover=crossover[12], build_s=sponge_lib12.build_seconds),
             entry("sponge_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
                   sponge12_launches, sponge12_ms, plain_times[("sponge_w12", "anemoi_4_3", 4)], sponge12_bound,
                   words=12, instance="bls12_381/anemoi_4_3", messages=N_MSGS, elements=E, plain_messages=N_PLAIN,

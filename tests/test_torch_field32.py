@@ -63,13 +63,23 @@ template <int W> void to_limbs_n(int32_t* limbs, const uint32_t* a, int n, const
                                  uint32_t n0) {
     for (int i = 0; i < n; ++i) f32_to_limbs<W>(limbs + i, (size_t)n, a + W * i, c_out, p, n0);
 }
+// the window table of x^(1/alpha): a local array with stride 1, where the
+// kernel gives each thread its shared-memory slots with stride BLOCK
 template <int NW> void jive_n(int32_t* out, const int32_t* in, int n, int width, int k, const uint32_t* consts) {
     const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
+    uint32_t tab[INV_ALPHA_TABLE * NW];
     for (int i = 0; i < n; ++i) {
-        if (width == 2) jive_lane<2, 2, NW>(out + i, in + i, (size_t)n, c);
-        else if (k == 2) jive_lane<4, 2, NW>(out + i, in + i, (size_t)n, c);
-        else jive_lane<4, 4, NW>(out + i, in + i, (size_t)n, c);
+        if (width == 2) jive_lane<2, 2, NW>(out + i, in + i, (size_t)n, c, tab, 1);
+        else if (k == 2) jive_lane<4, 2, NW>(out + i, in + i, (size_t)n, c, tab, 1);
+        else jive_lane<4, 4, NW>(out + i, in + i, (size_t)n, c, tab, 1);
     }
+}
+template <int NW> void pow_n(uint32_t* r, const uint32_t* x, int n, const uint32_t* consts) {
+    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
+    uint32_t tab[INV_ALPHA_TABLE * NW];
+    const ThreadArith<NW> ar{c, tab, 1};
+    for (int i = 0; i < n; ++i)
+        exp_inv_alpha<1>(ar, (uint32_t(*)[NW])(r + NW * i), (const uint32_t(*)[NW])(x + NW * i));
 }
 extern "C" {
 void t_mul(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, int words, const uint32_t* p, uint32_t n0) {
@@ -96,6 +106,10 @@ void t_to_limbs(int32_t* limbs, const uint32_t* a, int n, int words, const uint3
 // the kernel's per-thread work, lane by lane: [width*L, n] -> [(width/k)*L, n]
 void t_jive(int32_t* out, const int32_t* in, int n, int width, int k, int words, const uint32_t* consts) {
     BY_WORDS(jive_n, out, in, n, width, k, consts);
+}
+// x^(1/alpha) in R' form through ThreadArith's window, n values
+void t_exp_inv_alpha(uint32_t* r, const uint32_t* x, int n, int words, const uint32_t* consts) {
+    BY_WORDS(pow_n, r, x, n, consts);
 }
 int t_consts_words(int words) {
     return words == 8 ? (int)(sizeof(AnemoiConsts<8>) / 4) : (int)(sizeof(AnemoiConsts<12>) / 4);
@@ -244,3 +258,21 @@ def test_host_jive_matches_plain(lib, iname, k):
     x = random_canonical(inst.field, (W, 5), np.random.default_rng(11)).transpose(1, 0, 2).reshape(W * L, 5)
     plain = cuda_backend.jive(inst, k, torch.from_numpy(np.ascontiguousarray(x)))
     np.testing.assert_array_equal(_host_jive(lib, inst, k, x), plain.numpy())
+
+
+@pytest.mark.parametrize("field", FIELD_NAMES)
+def test_host_exp_inv_alpha_window(lib, field):
+    """x^(1/alpha) through ThreadArith's 4-bit sliding window, the code of the
+    Jive and one-thread permutation kernels, against Python's pow over every
+    field's own exponent: 0, 1, p - 1, the generator beta and 16 random
+    canonical bases, in and out in R' form."""
+    fp = get_field(field)
+    nw = fp.kernel_words
+    r_words = 1 << (32 * nw)
+    rng = np.random.default_rng(12)
+    bases = [0, 1, fp.p - 1, fp.beta] + [int.from_bytes(rng.bytes(56), "little") % fp.p for _ in range(16)]
+    x = _words([b * r_words % fp.p for b in bases], nw)
+    r = np.zeros_like(x)
+    consts = cuda_backend.consts_words(get_instance(field, "anemoi_2_1"))
+    lib.t_exp_inv_alpha(_ptr(r), _ptr(x), len(bases), nw, _ptr(consts))
+    assert _ints(r) == [pow(b, fp.inv_alpha, fp.p) * r_words % fp.p for b in bases]

@@ -59,10 +59,14 @@ def test_sass_functions_and_counts():
 
 
 def test_ptx_functions():
+    """A function ends at its closing brace at the start of a line (an inner
+    block's is indented): what comes between it and the next (the next
+    kernel's shared array) belongs to neither."""
     ptx = ("//\n.visible .entry _Z14permute_kernelILi2EEvPKiPix12AnemoiConstsILi8EE(\n\t.param .u64 a\n)\n{\n"
-           "\tret;\n}\n.visible .entry _Z14permute_kernelILi4EEvPKiPix12AnemoiConstsILi8EE(\n{\n}\n")
-    funcs = sass.functions(ptx, ".entry", r"\S")
-    assert [len(v) for v in funcs.values()] == [5, 2]
+           "\t{\n\t}\n\tret;\n}\n.shared .align 4 .b8 tab[32768];\n"
+           ".visible .entry _Z14permute_kernelILi4EEvPKiPix12AnemoiConstsILi8EE(\n{\n}\n")
+    assert [len(v) for v in sass.functions(ptx, ".entry", r"\S").values()] == [8, 2]
+    assert [len(v) for v in sass.functions(ptx, ".entry", r"\S", "}").values()] == [7, 2]
 
 
 def test_innermost_loop():
@@ -73,3 +77,40 @@ def test_innermost_loop():
     assert sass.opcode_counts(sass.innermost_loop(lines)) == {"instructions": 3, "LDL": 0, "STL": 0, "SHFL": 1,
                                                              "VOTE": 0, "IMAD": 1}
     assert sass.innermost_loop(lines[:1]) == []
+
+
+def test_compare():
+    """A kernel's instructions alike in two builds but for their encodings,
+    and its PTX but for the numbers of its basic-block labels, is "same";
+    an operand that differs is "changed"; a kernel the other build lacks is
+    "new"."""
+    funcs = sass.functions(SASS)
+    name = "_Z13sponge_kernelILi2EEvPKiPixi12AnemoiConstsILi8EE"
+    ptx = {name: ["ret;"]}
+    reencoded = {name: [line.replace("0x00000a00ff017b82", "0x00000a00ff017b83") for line in funcs[name]]}
+    verdict = sass.compare(name, (funcs, ptx), (reencoded, ptx))
+    assert verdict.startswith("sponge_kernel<2>: same; PTX the same") and "encodings differ" in verdict
+    other = {name: [line.replace("R29, R22", "R29, R23") for line in funcs[name]]}
+    assert sass.compare(name, (funcs, ptx), (other, ptx)).startswith("sponge_kernel<2>: changed")
+    assert "2 lines differ" in sass.compare(name, (funcs, ptx), (other, ptx))
+    assert sass.compare(name, (funcs, ptx), ({}, {})) == "sponge_kernel<2>: new (6 SASS instructions)"
+    relabelled = {name: ["@%p1 bra $L__BB4_2;", "$L__BB4_2:"]}
+    assert "same; PTX the same" in sass.compare(name, (funcs, {name: ["@%p1 bra $L__BB2_2;", "$L__BB2_2:"]}),
+                                                (funcs, relabelled))
+    assert "PTX differs" in sass.compare(name, (funcs, {name: ["@%p1 bra $L__BB2_3;", "$L__BB2_2:"]}),
+                                         (funcs, relabelled))
+
+
+@pytest.mark.parametrize("source", ["jive.cu", "sponge.cu"])
+def test_bounds_sweep_sets_the_sources_constants(source):
+    """Every constant the sweep sets by -D is one the source lets a -D
+    override, and every kernel it times is bounded by one of them."""
+    from anemoi_tpu_torch import _build, bounds_sweep
+
+    text = (_build.CSRC / source).read_text()
+    for macro in bounds_sweep.MACROS[source]:
+        assert f"#ifndef {macro}\n#define {macro} " in text
+        assert macro in text[text.index("__launch_bounds__(BLOCK, "):]
+    assert bounds_sweep.defines(source, 3) == tuple(f"-D{m}=3" for m in bounds_sweep.MACROS[source])
+    timed = [k for k in bounds_sweep.KERNELS if k[0] == source]
+    assert timed and all(k[2] in bounds_sweep.MACROS[source] and k[1].split("<")[0] in text for k in timed)

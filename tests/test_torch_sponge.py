@@ -197,6 +197,34 @@ def test_cuda_tensors_go_to_the_kernels_or_raise(monkeypatch):
     assert asked == [8, 8, 12, 12]
 
 
+def test_permutation_counts_the_kernel_it_launches(monkeypatch):
+    """A CUDA tensor goes to the library's one launcher: ``permutation`` lets
+    it pick the kernel by N, ``permutation_with`` names the kernel.
+    ``permutation`` counts one launch a call, and in ``group_launches``
+    those that the launcher reports it sent to the four-lane kernel;
+    ``permutation_with`` counts nothing."""
+    launched = []
+
+    def launcher(lib, name, x, out, width, kernel, consts, picked):
+        # as anemoi_permute, with a crossover of 3 states
+        picked.contents.value = int(x.shape[1] <= 3) if kernel < 0 else kernel
+        launched.append((name, x.shape[1], kernel))
+
+    monkeypatch.setattr(cuda_backend, "sponge_library", lambda words: type("Built", (), {"cdll": None})())
+    monkeypatch.setattr(cuda_backend, "_launch", launcher)
+    monkeypatch.setattr(cuda_backend.permutation, "launches", 0)
+    monkeypatch.setattr(cuda_backend.permutation, "group_launches", 0)
+    inst = get_instance("vesta", "anemoi_4_3")
+    fake = lambda n: torch.zeros(80, n, dtype=torch.int32).as_subclass(_FakeCudaTensor)
+    for n in (1, 3, 4, 0):
+        cuda_backend.permutation(inst, fake(n))
+    for group in (True, False):
+        cuda_backend.permutation_with(inst, fake(5), group)
+    assert launched == [("anemoi_permute", 1, -1), ("anemoi_permute", 3, -1), ("anemoi_permute", 4, -1),
+                        ("anemoi_permute", 5, 1), ("anemoi_permute", 5, 0)]
+    assert (cuda_backend.permutation.launches, cuda_backend.permutation.group_launches) == (3, 2)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -210,8 +238,10 @@ def test_kernels_match_plain_on_card():
         W, L = inst.width, inst.field.n_limbs
         x = torch.from_numpy(random_canonical(inst.field, (W, 131), rng).transpose(1, 0, 2).copy())
         x = x.reshape(W * L, 131).cuda()
-        np.testing.assert_array_equal(cuda_backend.permutation(inst, x).cpu().numpy(),
-                                      cuda_backend.permutation_plain(inst, x).cpu().numpy())
+        plain = cuda_backend.permutation_plain(inst, x).cpu().numpy()
+        np.testing.assert_array_equal(cuda_backend.permutation(inst, x).cpu().numpy(), plain)
+        for group in (True, False):
+            np.testing.assert_array_equal(cuda_backend.permutation_with(inst, x, group).cpu().numpy(), plain)
         m = torch.from_numpy(random_canonical(inst.field, (E, 131), rng).transpose(1, 0, 2).copy())
         m = m.reshape(E * L, 131).cuda()
         np.testing.assert_array_equal(cuda_backend.sponge(inst, E, m).cpu().numpy(),

@@ -3,9 +3,12 @@ with g++: csrc/sponge.cu's permute_lane and sponge_lane against the port's
 golden model and the SAGE hash_field / hash_bytes vectors of all seven
 fields, at 8 and 12 words, including whole 10 KB messages (331 elements of
 31 bytes for Vesta, 218 of 47 bytes for BLS12-381).  The sponge kernel runs
-sponge_group, each message on a group of four lanes: here the same
-template over the HostLanes policy (field32_group.cuh), which holds the
-four lanes in one object, is held against the same vectors and messages.
+sponge_group, each message on a group of four lanes, and the four-lane
+permutation kernel permute_group: here the same templates over the
+HostLanes policy (field32_group.cuh), which holds the four lanes in one
+object, are held against the same vectors and messages, the golden model's
+permutation of all 14 instances and, for Vesta and BLS12-381 anemoi_4_3,
+the JAX package (Vesta's through its jit-compiled permutation_fn).
 
 sponge.cu is __host__ __device__ outside its kernels, so this checks the
 very code the kernels are compiled from, without a card, with the
@@ -17,9 +20,13 @@ import ctypes
 import shutil
 import subprocess
 
+import jax
 import numpy as np
 import pytest
 
+from anemoi_tpu.ff import golden as jgolden
+from anemoi_tpu.fields import params as jparams
+from anemoi_tpu.permutation.batched import permutation_fn as jax_permutation_fn
 from anemoi_tpu_torch.ff import cuda_backend, golden, native
 from anemoi_tpu_torch.ff.limb_ops import decode_ints, encode_ints, random_canonical
 from anemoi_tpu_torch.fields.params import FIELD_NAMES, INSTANCE_NAMES, get_instance, int_from_limbs
@@ -30,18 +37,30 @@ _SHIM = r"""
 #include <stddef.h>
 #include "sponge.cu"
 // the kernels' per-thread work, lane by lane, on limb-major int32 arrays
+// x^(1/alpha)'s window table: a local array with stride 1, where the
+// kernel gives each thread its shared-memory slots with stride BLOCK
 template <int NW> void permute_n(int32_t* out, const int32_t* in, int n, int width, const uint32_t* consts) {
     const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
+    uint32_t tab[INV_ALPHA_TABLE * NW];
     for (int i = 0; i < n; ++i) {
-        if (width == 2) permute_lane<2, NW>(out + i, in + i, (size_t)n, c);
-        else permute_lane<4, NW>(out + i, in + i, (size_t)n, c);
+        if (width == 2) permute_lane<2, NW>(out + i, in + i, (size_t)n, c, tab, 1);
+        else permute_lane<4, NW>(out + i, in + i, (size_t)n, c, tab, 1);
     }
 }
 template <int NW> void sponge_n(int32_t* out, const int32_t* in, int n, int width, int E, const uint32_t* consts) {
     const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
+    uint32_t tab[INV_ALPHA_TABLE * NW];
     for (int i = 0; i < n; ++i) {
-        if (width == 2) sponge_lane<2, NW>(out + i, in + i, (size_t)n, E, c);
-        else sponge_lane<4, NW>(out + i, in + i, (size_t)n, E, c);
+        if (width == 2) sponge_lane<2, NW>(out + i, in + i, (size_t)n, E, c, tab, 1);
+        else sponge_lane<4, NW>(out + i, in + i, (size_t)n, E, c, tab, 1);
+    }
+}
+template <int NW> void gpermute_n(int32_t* out, const int32_t* in, int n, int width, const uint32_t* consts,
+                                  int store) {
+    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
+    for (int i = 0; i < n; ++i) {
+        if (width == 2) permute_group<2, NW, HostLanes>(out + i, in + i, (size_t)n, store != 0, c);
+        else permute_group<4, NW, HostLanes>(out + i, in + i, (size_t)n, store != 0, c);
     }
 }
 template <int NW> void gsponge_n(int32_t* out, const int32_t* in, int n, int width, int E, const uint32_t* consts,
@@ -60,6 +79,12 @@ void t_permute(int32_t* out, const int32_t* in, int n, int width, int words, con
 void t_sponge(int32_t* out, const int32_t* in, int n, int width, int E, int words, const uint32_t* consts) {
     if (words == 8) sponge_n<8>(out, in, n, width, E, consts);
     else sponge_n<12>(out, in, n, width, E, consts);
+}
+// permute_group over HostLanes: one group of four lanes per state; a group
+// with store == 0 writes nothing
+void t_gpermute(int32_t* out, const int32_t* in, int n, int width, int words, const uint32_t* consts, int store) {
+    if (words == 8) gpermute_n<8>(out, in, n, width, consts, store);
+    else gpermute_n<12>(out, in, n, width, consts, store);
 }
 // sponge_group over HostLanes: one group of four lanes per message; a
 // group with store == 0 writes nothing
@@ -96,6 +121,8 @@ def lib(tmp_path_factory):
                              ctypes.c_int, ctypes.c_void_p]
     lib.t_gsponge.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    lib.t_gpermute.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_int]
     lib.t_consts_words.argtypes = [ctypes.c_int]
     return lib
 
@@ -244,3 +271,61 @@ def test_host_group_sponge_full_message(lib, field, iname, elements):
     elems = _message_ints(inst, data)
     assert len(elems) == elements
     assert _host_sponge(lib, inst, [elems], group=True) == golden.hash_bytes(inst, data)
+
+
+def _host_group_permute(lib, inst, x, store=1, out=None):
+    """permute_group over four host lanes, the code of the four-lane
+    permutation kernel, on int32 [WIDTH*L, N] limbs."""
+    x = np.ascontiguousarray(x, dtype=np.int32)
+    out = np.zeros_like(x) if out is None else out
+    lib.t_gpermute(out.ctypes.data, x.ctypes.data, x.shape[1], inst.width, inst.field.kernel_words,
+                   cuda_backend.consts_words(inst).ctypes.data, store)
+    return out
+
+
+@pytest.mark.parametrize("field", FIELD_NAMES)
+@pytest.mark.parametrize("iname", INSTANCE_NAMES)
+def test_host_group_permute_matches_golden(lib, field, iname):
+    """permute_group on 8 states of every instance (the zero state among
+    them) against the golden model; a group that must not store (past the
+    ragged edge on the card) leaves the output alone."""
+    inst = get_instance(field, iname)
+    W, L = inst.width, inst.field.n_limbs
+    x = random_canonical(inst.field, (W, 8), np.random.default_rng(27)).transpose(1, 0, 2)  # (W, L, 8)
+    x[:, :, 0] = 0
+    x = x.reshape(W * L, 8)
+    out = _host_group_permute(lib, inst, x)
+    assert out.min() >= 0 and out.max() < 1 << 13
+    states = [decode_ints(x.reshape(W, L, 8)[w], inst.field) for w in range(W)]
+    got = [decode_ints(out.reshape(W, L, 8)[w], inst.field) for w in range(W)]
+    for b in range(8):
+        assert [got[w][b] for w in range(W)] == golden.permutation(inst, [states[w][b] for w in range(W)])
+    untouched = np.full_like(x, -1)
+    assert (_host_group_permute(lib, inst, x, store=0, out=untouched) == -1).all()
+
+
+@pytest.mark.parametrize("field", ["vesta", "bls12_381"])
+def test_host_permutations_match_jax(lib, field):
+    """permute_group (the four-lane kernel's code) and permute_lane (the
+    one-thread kernel's, with the window) on the same 8 random canonical
+    anemoi_4_3 states, made with numpy, against the JAX package: for Vesta
+    its permutation_fn, jit-compiled on the CPU as its own tests run it
+    (about 95 s of XLA compile, cold); for BLS12-381 its golden model, since
+    XLA takes about 250 s to compile the 30-limb permutation_fn."""
+    inst = get_instance(field, "anemoi_4_3")
+    ref = jparams.get_instance(field, "anemoi_4_3")
+    W, L = inst.width, inst.field.n_limbs
+    x = np.ascontiguousarray(random_canonical(inst.field, (W, 8), np.random.default_rng(28)).transpose(1, 0, 2))
+    if field == "vesta":
+        want = np.asarray(jax.jit(jax_permutation_fn(ref))(x)).reshape(W * L, 8)
+    else:
+        states = [decode_ints(x[w], inst.field) for w in range(W)]
+        after = [jgolden.permutation(ref, [states[w][b] for w in range(W)]) for b in range(8)]
+        want = np.stack([encode_ints([after[b][w] for b in range(8)], inst.field).numpy() for w in range(W)])
+        want = want.reshape(W * L, 8)
+    x = x.reshape(W * L, 8)
+    np.testing.assert_array_equal(_host_group_permute(lib, inst, x), want)
+    out = np.zeros_like(x)
+    lib.t_permute(out.ctypes.data, x.ctypes.data, 8, W, inst.field.kernel_words,
+                  cuda_backend.consts_words(inst).ctypes.data)
+    np.testing.assert_array_equal(out, want)
