@@ -228,6 +228,10 @@ def add_mod(a, b, fc: FieldConsts):
     return _binary(_add64, a, b, fc)
 
 
+def double_mod(a, fc: FieldConsts):
+    return add_mod(a, a, fc)
+
+
 def sub_mod(a, b, fc: FieldConsts):
     return _binary(_sub64, a, b, fc)
 
@@ -263,10 +267,49 @@ def from_mont(a, fc: FieldConsts):
     return _mul_by_column(a, "unit", fc)
 
 
+def _const_column(const_limbs: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(const_limbs, dtype=np.int64).reshape(-1, 1), device=device)
+
+
 def add_const(a, const_limbs: np.ndarray, fc: FieldConsts):
     """a + c mod p for a host constant c of canonical limbs (int32 [L])."""
-    c = torch.as_tensor(np.asarray(const_limbs, dtype=np.int64).reshape(-1, 1), device=a.device)
-    return _add64(a.long(), c, fc.on(a.device)).to(a.dtype)
+    return _add64(a.long(), _const_column(const_limbs, a.device), fc.on(a.device)).to(a.dtype)
+
+
+def mul_const(a, const_limbs: np.ndarray, fc: FieldConsts):
+    """a * c for a host constant c already in Montgomery form (int32 [L])."""
+    return _mont_mul64(a.long(), _const_column(const_limbs, a.device), fc.on(a.device)).to(a.dtype)
+
+
+def exp_alpha(x, fc: FieldConsts, alpha: int):
+    """The forward S-box power x^alpha for the small static alpha (5 or 11),
+    by square-and-multiply from the top bit."""
+    d = fc.on(x.device)
+    base = acc = x.long()
+    for bit in bin(alpha)[3:]:  # the leading 1 is the starting x
+        acc = _mont_mul64(acc, acc, d)
+        if bit == "1":
+            acc = _mont_mul64(acc, base, d)
+    return acc.to(x.dtype)
+
+
+# The JAX package's TPU schedules (anemoi_tpu/ff/limb_ops.py:field_consts):
+# the port accepts the same names and runs its own arithmetic for all of them.
+MUL_IMPLS = ("cios", "cios2", "cios2s", "parallel", "mxu", "mxu2", "mxu3", "mxus", "mxuf")
+LADDERS = ("fixed4", "sw4", "chain", "chain2", "chain3")
+
+
+def check_tuning(mul_impl: str | None = None, ladder: str | None = None) -> None:
+    """Raises ValueError for a mul_impl or ladder name the JAX package
+    rejects; None stands for its per-instance default."""
+    if ladder is not None and ladder not in LADDERS and not (
+        ladder.startswith("chainseg") and (ladder[8:] == "" or (ladder[8:].isdigit() and int(ladder[8:]) >= 1))
+    ):
+        raise ValueError(f"unknown ladder {ladder!r}; expected one of {', '.join(LADDERS)} or 'chainseg[N]'")
+    if mul_impl is not None and mul_impl not in MUL_IMPLS and not (
+        mul_impl.startswith("cios") and mul_impl[4:].isdigit()
+    ):
+        raise ValueError(f"unknown mul_impl {mul_impl!r}; expected one of {', '.join(MUL_IMPLS)} or 'cios<k>'")
 
 
 # --------------------------------------------------------------------------

@@ -84,6 +84,11 @@ class FieldParams:
         return pow(2, 2 * LIMB_BITS * self.n_limbs, self.p)
 
     @property
+    def n0_inv(self) -> int:
+        """-p^-1 mod 2^13 (the limb form's Montgomery reduction multiplier)."""
+        return (-pow(self.p, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+
+    @property
     def p_limbs(self) -> np.ndarray:
         return limbs_from_int(self.p, self.n_limbs)
 
@@ -92,6 +97,42 @@ class FieldParams:
 
     def from_mont(self, x: int) -> int:
         return x * pow(self.R, -1, self.p) % self.p
+
+    @property
+    def inv_alpha_windows(self) -> tuple[int, ...]:
+        """Base-16 digits of inv_alpha, most significant first (no leading
+        0): the fixed 4-bit window schedule of x^(1/alpha)."""
+        e = self.inv_alpha
+        digits = []
+        while e:
+            digits.append(e & 0xF)
+            e >>= 4
+        return tuple(reversed(digits))
+
+    @property
+    def inv_alpha_sliding_schedule(self) -> tuple[tuple[int, int], ...]:
+        """Left-to-right sliding-window schedule of x^inv_alpha: (squarings,
+        odd window value) steps over windows of at most 4 bits that start
+        and end on a 1-bit.  The first step only seeds the accumulator with
+        x^v; each later one squares n times, then multiplies by x^v."""
+        bits = bin(self.inv_alpha)[2:]
+        n = len(bits)
+        steps: list[tuple[int, int]] = []
+        i = pending = 0
+        while i < n:
+            if bits[i] == "0":
+                pending += 1
+                i += 1
+                continue
+            length = min(4, n - i)
+            while bits[i + length - 1] == "0":
+                length -= 1
+            steps.append((pending + length, int(bits[i : i + length], 2)))
+            pending = 0
+            i += length
+        if pending:
+            raise ValueError("inv_alpha must be odd")
+        return tuple(steps)
 
     # --- the CUDA kernels' 32-bit form -------------------------------------
     @property

@@ -146,7 +146,10 @@ class AnemoiInstance:
             compress_k=lambda states, k: compress_fn(k, states.device)(states),
             merge=lambda d0, d1: merge_fn(d0.device)(d0, d1),
             hash_field=lambda elems: sponge_fn(int(elems.shape[0]), elems.device)(elems),
-            hash_bytes=lambda messages, device=None: hash_bytes_mixed(params, messages, device=device),
+            # every backend name hashes alike: the device picks the route
+            hash_bytes=lambda messages, backend="jit", device=None: hash_bytes_mixed(
+                params, messages, backend=backend, device=device
+            ),
             encode_states=lambda states, mont=True, device=None: bm.encode_states(
                 params, states, mont=mont, device=device
             ),

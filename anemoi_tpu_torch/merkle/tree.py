@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ff import cuda_backend, golden
-from ..ff.limb_ops import decode_ints
+from ..ff.limb_ops import check_tuning, decode_ints
 from ..fields.params import InstanceParams
 
 
@@ -36,9 +36,27 @@ def _host(x) -> np.ndarray:
 
 class MerkleTree:
     """Merkle tree builder for one instantiation: arity 2 for anemoi_2_1
-    (Jive 2-to-1), arity 4 for anemoi_4_3 (Jive 4-to-1)."""
+    (Jive 2-to-1), arity 4 for anemoi_4_3 (Jive 4-to-1).
 
-    def __init__(self, inst: InstanceParams, *, device=None):
+    The JAX package's keyword arguments change no root.  The device picks
+    the route, not ``backend``: every name and the port's "cuda" give one
+    Jive launch a level on the card and the plain version on the CPU.
+    ``chunk_b`` is accepted and ignored: a level is one launch whatever its
+    size.  ``mul_impl`` and ``ladder`` name the JAX package's TPU schedules:
+    a name it rejects raises ``ValueError`` here too; the others run the
+    port's own arithmetic."""
+
+    def __init__(
+        self,
+        inst: InstanceParams,
+        *,
+        backend: str = "jit",
+        chunk_b: int | None = None,
+        mul_impl: str | None = None,
+        ladder: str | None = None,
+        device=None,
+    ):
+        check_tuning(mul_impl, ladder)
         self.inst = inst
         self.arity = inst.width
         self.k = inst.width // inst.digest_size

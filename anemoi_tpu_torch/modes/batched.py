@@ -25,12 +25,13 @@ def _check_on(x, device: torch.device, shape: tuple, what: str) -> None:
         raise ValueError(f"expected {what} {list(shape) + ['B']}, got {tuple(x.shape)}")
 
 
-def jive_compress_batch_fn(inst: InstanceParams, k: int = 2, *, device=None):
+def jive_compress_batch_fn(inst: InstanceParams, k: int = 2, *, unroll: bool = False, device=None):
     """Returns f(states: int32 [WIDTH, L, B]) -> int32 [WIDTH//k, L, B].
 
     Jive-k: out[i] = sum_j (x[i+c*j] + P(x)[i+c*j]), c = WIDTH//k.
     ``device`` None means the card; the function takes tensors on that
-    device only."""
+    device only.  ``unroll`` (the JAX package's XLA graph form) is accepted
+    and ignored: the kernel chooses its own code."""
     if inst.width % k or k % 2:
         raise ValueError(f"{inst.qualified_name} has no Jive-{k}")
     device = cuda_backend.resolve_device(device)
@@ -44,14 +45,15 @@ def jive_compress_batch_fn(inst: InstanceParams, k: int = 2, *, device=None):
     return compress
 
 
-def merge_batch_fn(inst: InstanceParams, *, device=None):
+def merge_batch_fn(inst: InstanceParams, *, unroll: bool = False, device=None):
     """Returns f(d0, d1: int32 [DIGEST, L, B]) -> int32 [DIGEST, L, B]: the
     Merkle 2-to-1 node.
 
     2_1 is Jive 2-to-1 (one launch of the Jive kernel); 4_3 absorbs both
     digests into the rate and permutes once (one launch of the permutation
     kernel), with the reference's digests[0]-twice quirk corrected, as in
-    the JAX package (see ``golden.merge``)."""
+    the JAX package (see ``golden.merge``).  ``unroll`` is accepted and
+    ignored, as in ``jive_compress_batch_fn``."""
     device = cuda_backend.resolve_device(device)
     ds, L, W = inst.digest_size, inst.field.n_limbs, inst.width
     compress = jive_compress_batch_fn(inst, 2, device=device) if inst.rate == 1 else None
@@ -69,7 +71,9 @@ def merge_batch_fn(inst: InstanceParams, *, device=None):
     return merge
 
 
-def sponge_hash_batch_fn(inst: InstanceParams, num_elements: int, *, device=None):
+def sponge_hash_batch_fn(
+    inst: InstanceParams, num_elements: int, *, backend: str = "jit", block_b: int | None = None, device=None
+):
     """Returns f(elems: int32 [E, L, B] Montgomery) -> int32 [DIGEST, L, B]
     for a fixed message length E.
 
@@ -77,7 +81,13 @@ def sponge_hash_batch_fn(inst: InstanceParams, num_elements: int, *, device=None
     kernel; 0 < E < rate (4_3 with one or two elements) puts the elements
     and sigma = 1 into the rate of a zero state on the host's side and
     launches the permutation once; E = 0 absorbs nothing, and its digest is
-    0 with no launch (reference hasher.rs:92-128)."""
+    0 with no launch (reference hasher.rs:92-128).
+
+    The device picks the route, not ``backend``: every name the JAX package
+    takes ("pallas", "jit" or any other) and the port's "cuda" give the
+    kernels on the card and the plain version on the CPU, with the same
+    digests.  ``block_b`` is accepted and ignored: the kernels choose their
+    own blocking."""
     device = cuda_backend.resolve_device(device)
     W, L, rate, ds = inst.width, inst.field.n_limbs, inst.rate, inst.digest_size
     E = num_elements

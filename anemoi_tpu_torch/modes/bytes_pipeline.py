@@ -26,19 +26,21 @@ def pack_messages(inst: InstanceParams, messages: list) -> np.ndarray:
     return np.ascontiguousarray(packed.transpose(1, 2, 0))
 
 
-def hash_bytes_batch(inst: InstanceParams, messages: list, *, device=None) -> torch.Tensor:
+def hash_bytes_batch(inst: InstanceParams, messages: list, *, backend: str = "jit", device=None) -> torch.Tensor:
     """Hashes a batch of equal-length byte messages on ``device`` (None: the
-    card); returns int32 [DIGEST, L, B] Montgomery digests there."""
+    card); returns int32 [DIGEST, L, B] Montgomery digests there.  Every
+    ``backend`` name hashes alike: the device picks the route
+    (``sponge_hash_batch_fn``)."""
     device = cuda_backend.resolve_device(device)
     return _hash_packed(inst, pack_messages(inst, messages), device)
 
 
-def mont_messages(inst: InstanceParams, elems: np.ndarray, device) -> torch.Tensor:
-    """Canonical int32 [E, L, B] limbs (an array on the host) -> contiguous
-    int32 [E, L, B] Montgomery limbs on ``device``."""
+def mont_messages(inst: InstanceParams, elems, device) -> torch.Tensor:
+    """Canonical int32 [E, L, B] limbs (an array on the host, or a tensor)
+    -> contiguous int32 [E, L, B] Montgomery limbs on ``device``."""
     E, L, B = elems.shape
     # fold E into the batch axis for one domain conversion
-    folded = torch.from_numpy(elems).to(device).permute(1, 0, 2).reshape(L, E * B)
+    folded = torch.as_tensor(elems).to(device).permute(1, 0, 2).reshape(L, E * B)
     return lo.to_mont(folded, lo.field_consts(inst.field)).reshape(L, E, B).permute(1, 0, 2).contiguous()
 
 
@@ -46,7 +48,7 @@ def _hash_packed(inst: InstanceParams, elems: np.ndarray, device: torch.device) 
     return sponge_hash_batch_fn(inst, elems.shape[0], device=device)(mont_messages(inst, elems, device))
 
 
-def hash_bytes_mixed(inst: InstanceParams, messages: list, *, device=None) -> np.ndarray:
+def hash_bytes_mixed(inst: InstanceParams, messages: list, *, backend: str = "jit", device=None) -> np.ndarray:
     """Hashes byte messages of any lengths on ``device`` (None: the card).
 
     Messages are bucketed by element count E = ceil(len / byte_chunk), the
@@ -54,7 +56,8 @@ def hash_bytes_mixed(inst: InstanceParams, messages: list, *, device=None) -> np
     is packed by the native packer and hashed by one sponge call.  Every
     bucket is dispatched before any is fetched, so the card runs them back
     to back.  Returns int32 [DIGEST, L, len(messages)] Montgomery digests in
-    the messages' order."""
+    the messages' order.  Every ``backend`` name hashes alike: the device
+    picks the route (``sponge_hash_batch_fn``)."""
     device = cuda_backend.resolve_device(device)
     L = inst.field.n_limbs
     packed = [native.pack_bytes(m, inst.field) for m in messages]  # (E_i, L) each

@@ -26,9 +26,16 @@ from ..fields.params import InstanceParams
 
 class BatchedSponge:
     """Incremental sponge over a batch of B equal-length element streams on
-    ``device`` (None: the card)."""
+    ``device`` (None: the card).
 
-    def __init__(self, inst: InstanceParams, batch: int, *, device=None):
+    The device picks the route, not ``backend``: every name the JAX package
+    takes and the port's "cuda" launch the permutation kernel on the card
+    and run the plain version on the CPU.  ``block_b`` is accepted and
+    ignored: the kernel chooses its own blocking."""
+
+    def __init__(
+        self, inst: InstanceParams, batch: int, *, backend: str = "jit", block_b: int | None = None, device=None
+    ):
         self.inst = inst
         self.fc = lo.field_consts(inst.field)
         self.device = cuda_backend.resolve_device(device)

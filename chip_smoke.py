@@ -26,25 +26,31 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      for Vesta 2_1 (k=2) and Vesta 4_3 (k=2, 4): 4,099 states, the plain
      version on 257 of them (both ends, so the ragged last block is among
      them); and for the 2_1 instance of the other four 20-limb fields,
-     16 of 4,099 lanes against the golden model;
+     all 4,099 lanes against the native oracle (``ff/native.py``:
+     64-bit Montgomery words in C++ on the host, independent of the port's
+     limb code and kernels; its calls split over the host's cores);
   4. the SAGE Jive vectors of the five 20-limb fields x 2 instances;
   5. full size, Vesta 2_1: the main path with every launch count set to 0
      just before and read just after (one Jive over 2^20 states and one
      2^20-leaf root: 1 + 20 launches); then Jive timed with CUDA events
      beside the earlier kernels' and its bound, 1,024 sampled lanes
-     against the plain version, the root timed, up to 1,024 columns of
-     each of its levels against the plain version, and a 16-leaf root
-     against the plain version's;
+     against the plain version and 65,536 (32,768 at each end) against the
+     native oracle, the root timed, up to 1,024 columns of each of its
+     levels against the plain version, a 16-leaf root against the plain
+     version's and a 2^14-leaf root against a reduction by the oracle;
   6. the permutation and sponge kernels against their plain versions, bit
      for bit: both permutation kernels for Vesta 2_1 and 4_3, through
      ``permutation`` at N = 5, 4,099, the crossover X, X - 3 and X + 1
      (ragged on either side of it) and 65,536 (the one-thread kernel at
      phase 8's second path) and through ``permutation_with`` each kernel
-     at 4,099, up to 257 lanes of each N held (both ends); the
-     sponge over 1,024 messages of Vesta
+     at 4,099, up to 257 lanes of each N held (both ends), and every lane
+     of each N up to X + 1 (the first X + 1 of 65,536) against the native
+     oracle; the sponge over 1,024 messages of Vesta
      4_3 with E = 3 (sigma, no extra permutation), all held, and over 4,099
      (not a whole warp of 8 messages nor a block of 32; 257 held at both
-     ends) with E = 4 (tail 1) and of Vesta 2_1 with E = 2;
+     ends) with E = 4 (tail 1) and of Vesta 2_1 with E = 2; every message
+     of each also against a host sponge: the rate adds and sigma in Python
+     ints, each permutation the native oracle's;
   7. the SAGE hash_field and hash_bytes vectors of the five 20-limb fields
      x 2 instances through ``.batch.hash_field`` and ``.batch.hash_bytes``
      on the card, and the Vesta 2_1 digest of b"hello world" through
@@ -69,18 +75,20 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
   9. the 12-word instantiations against their plain versions, bit for bit,
      4,099 lanes each and 257 of them held: Jive (2,2), (4,2), (4,4) for
      BLS12-381, both permutation kernels of BLS12-377 2_1 and 4_3 as in
-     phase 6, the sponge for BLS12-381 4_3 with E = 3 and E = 4 and 2_1
-     with E = 2;
+     phase 6 (the native oracle too), the sponge for BLS12-381 4_3 with
+     E = 3 and E = 4 and 2_1 with E = 2;
  10. the SAGE jive, hash_field and hash_bytes vectors of BLS12-377 and
      BLS12-381 x 2 instances through ``.batch`` on the card;
  11. full size, BLS12-381 2_1: the main path with every launch count set to
      0 just before and read just after (one Jive over 2^20 states and one
      2^20-leaf root: 1 + 20 launches); Jive timed beside the earlier
      kernels' and its bound, 1,024 sampled lanes against the plain
-     version; the root timed with ``return_levels``;
+     version and 16,384 (8,192 at each end) against the native oracle; the
+     root timed with ``return_levels``;
      ``prove`` and ``verify`` for 8 leaves (0 and 2^20 - 1 among them) and
      a tampered leaf that must fail; then BLS12-377 2_1 Jive over 2^20
-     states, timed, 256 sampled lanes against the golden model;
+     states, timed, 256 sampled lanes against the golden model and 16,384
+     against the native oracle;
  12. checkpoints on the card: a 2^12-leaf BLS12-381 tree written to a
      temporary directory, its level files deleted down to the lowest three,
      and resumed: the resumed root and levels equal the fresh ones;
@@ -99,20 +107,39 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      per squaring; the multiply-add loop at the JAX tool's shapes and at
      one that fills the card, in iterations per clock per SM, and its SASS;
      each kernel against its plain version on a few lanes;
- 15. one JSON line of kernels: launches, error, times, bound; and every
-     bound beside the IMAD rate that phase 14 measured.
+ 16. full width, the fourth slice's paths, each with the launch counts set
+     to 0 just before and read just after (run before 15): the CLI
+     (``python -m anemoi_tpu_torch.cli``, a process of its own on the card)
+     hashing 256 files of 8 lengths from 0 to 10 KB for Vesta 2_1 and
+     BLS12-381 4_3 (digests equal ``.batch.hash_bytes``'s, 16 the golden
+     model's, "hello world" among them; its ``--stats`` launches), its
+     ``merkle`` over 2^20 x 31 - 40 bytes (2^20 - 1 elements and a zero
+     leaf: the root equals ``MerkleTree.root``'s, 20 Jive launches, wall
+     time), ``info`` and ``vectors``; ``AsyncByteHasher`` over phase 8's
+     4,096 x 10 KB Vesta 4_3 messages in 4 batches of 1,024 (4 sponge
+     launches, digests equal ``.batch.hash_bytes``'s, its time beside
+     theirs and the packing's); the forest over 2^20 Vesta 2_1 leaves on
+     one NCCL rank (a ``file://`` store; the root equals
+     ``MerkleTree.root``'s, 20 Jive launches, ``collective_traffic``); one
+     2^20 Jive under ``utils.profiling.trace`` (the trace names the
+     kernel) and ``utils.debug.check_limbs`` on the phase's canonical
+     digests;
+ 15. one JSON line of kernels: launches, error, times, bound, with this
+     slice's launches beside; every bound beside the IMAD rate that phase
+     14 measured; the native oracle's seconds.
 
 The tolerance everywhere is exact: integer arithmetic, canonical outputs.
 Where the plain version would take minutes (a 10 KB message is 73 to 331
 permutations), outputs are held against the golden model over Python ints
-instead, on sampled lanes.
+instead, on sampled lanes, or against the native oracle on thousands.
 Any failure raises; the last line, printed only when every phase passed, is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside this file, it exits non-zero before printing any result.
 
 For development, ``--phases 6,8`` runs only the phases named, with phases
 1 and 2 (the device, the builds) and what they need (12 needs 11; 15 needs
-all): a short run on the card.  Such a run prints no result line.
+all): a short run on the card.  Such a run prints no result line.  Phases
+run in the order 1 to 14, 16, 15.
 """
 
 from __future__ import annotations
@@ -136,7 +163,9 @@ N_PLAIN = 257
 N_FULL = 1 << 20
 N_SAMPLE = 1024
 SMALL_TREE = 1 << 4  # its root against the plain version's: one plain call per level
-N_GOLDEN_LANES = 16  # phase 3's other 20-limb fields, against the golden model
+N_ORACLE_FULL = 1 << 16  # phase 5: lanes of the 2^20 Vesta Jive against the native oracle, half at each end
+ORACLE_TREE = 1 << 14  # phase 5: a root against a reduction by the native oracle
+N_ORACLE_W12 = 1 << 14  # phase 11: lanes of each 2^20 BLS12 Jive against the native oracle, half at each end
 REPS = 5
 MSG_BYTES = 10 * 1024  # bench.py:210-235, bench_sponge_10kb
 N_MSGS = 4096
@@ -194,6 +223,11 @@ EARLIER_MS = {"jive vesta": 199.184, "root vesta": 265.543, "jive bls12_381": 71
           "sponge vesta/anemoi_4_3": 471.496, "sponge vesta/anemoi_2_1": 1205.551,
           "sponge bls12_381/anemoi_4_3": 852.134, "sponge vesta/anemoi_4_3, 65536": 3474.261,
           "e2e vesta/anemoi_4_3": 1051.6, "e2e bls12_381/anemoi_4_3": 1510.4}
+N_CLI_FILES = 256  # phase 16: files hashed by the CLI
+CLI_LENGTHS = (0, 1, 31, 32, 100, 1000, 4097, MSG_BYTES)  # their byte lengths, 32 files each: 7 element counts
+N_CLI_GOLDEN = 16  # of them held against the golden model
+CLI_MERKLE_BYTES = (1 << 20) * 31 - 40  # packs to 2^20 - 1 Vesta elements: one zero leaf pads it to 2^20
+ASYNC_BATCH = 1024  # AsyncByteHasher's batch: phase 8's 4,096 messages in 4 batches
 PERM_SWEEP = (4096, 8192, 16384, 65536)  # the crossover sweep: both permutation kernels at each N
 N_STREAMS = 1 << 16  # BatchedSponge's second path: a batch above the crossover, for the one-thread kernel
 STREAM_BLOCKS = 8  # rate-blocks it absorbs, then a tail of one element
@@ -214,8 +248,32 @@ def golden_hash_bytes(args) -> list:
     return golden.hash_bytes(get_instance(field, iname), data)
 
 
-ALL_PHASES = frozenset(range(1, 16))
-PHASE_NEEDS = {12: {11}, 15: set(range(3, 15))}  # 12 resumes 11's tree; 15 reports every phase
+ALL_PHASES = frozenset(range(1, 17))
+PHASE_NEEDS = {12: {11}, 15: set(range(3, 17)) - {15}}  # 12 resumes 11's tree; 15 reports every phase
+
+
+def run_cli(*args: str) -> subprocess.Popen:
+    """``python -m anemoi_tpu_torch.cli ARGS`` from the checkout, on the card."""
+    return subprocess.Popen([sys.executable, "-m", "anemoi_tpu_torch.cli", *args], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+
+
+def cli_result(proc: subprocess.Popen, what: str, timeout: float = 600) -> tuple[list[str], dict]:
+    """Waits for a CLI run: its lines of output, and the launches its
+    ``--stats`` line reports on standard error (empty without one)."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        fail(f"{what}: the CLI exited {proc.returncode}:\n{err[-4000:]}")
+    stats = {}
+    for line in err.splitlines():
+        if line.startswith("seconds: "):
+            seconds, launches = line.split("; launches: ")
+            stats["seconds"] = float(seconds.split()[1])
+            for part in launches.replace(" (four-lane", ", four-lane").replace(")", "").split(", "):
+                name, n = part.rsplit(" ", 1)
+                stats[name] = int(n)
+    return out.splitlines(), stats
 
 
 def phase_list(text: str) -> frozenset:
@@ -277,7 +335,14 @@ def main() -> int:
     from anemoi_tpu_torch.ff import cuda_backend, golden, native
     from anemoi_tpu_torch.ff import limb_ops as lo
     from anemoi_tpu_torch.ff.limb_ops import random_canonical
-    from anemoi_tpu_torch.fields.params import FIELDS_20, FIELDS_30, get_instance, inv_alpha_chain
+    from anemoi_tpu_torch.fields.params import (
+        FIELDS_20,
+        FIELDS_30,
+        get_instance,
+        int_from_limbs,
+        inv_alpha_chain,
+        limbs_from_int,
+    )
     from anemoi_tpu_torch.merkle.tree import MerkleTree, level_states
     from anemoi_tpu_torch.modes.batched import (
         decode_states,
@@ -307,6 +372,68 @@ def main() -> int:
             fail(f"{what}: shapes {tuple(kernel_out.shape)} and {tuple(plain_out.shape)}")
         if err:
             fail(f"{what}: kernel and plain version differ (max abs err {err})")
+
+    oracle_s = {}  # seconds of the native oracle's calls, by check
+    sponge_msgs = None  # phase 8's messages, which phase 16 hashes again
+
+    def oracle(fn, inst, states, *args, what: str):
+        """fn, ``native.permute_batch_canonical`` or ``jive_batch_canonical``,
+        over canonical int32 [B, W, L] states, split over the host's cores
+        (the C calls release the GIL); its seconds go to oracle_s[what]."""
+        t = time.perf_counter()
+        parts = [part for part in np.array_split(states, os.cpu_count() or 1) if len(part)]
+        with ThreadPoolExecutor(len(parts)) as pool:
+            out = np.concatenate(list(pool.map(lambda part: fn(inst, part, *args), parts)))
+        oracle_s[what] = oracle_s.get(what, 0.0) + time.perf_counter() - t
+        return out
+
+    def canonical_host(inst, x, rows: int) -> np.ndarray:
+        """int32 [rows*L, n] (or [rows, L, n]) Montgomery limbs on the card ->
+        canonical int32 [n, rows, L] on the host, the oracle's layout."""
+        L, n = inst.field.n_limbs, x.shape[-1]
+        flat = x.reshape(rows, L, n).permute(1, 0, 2).reshape(L, rows * n)
+        return lo.from_mont(flat, lo.field_consts(inst.field)).reshape(L, rows, n).permute(2, 1, 0).cpu().numpy()
+
+    def held_oracle(kernel_canon: np.ndarray, want: np.ndarray, what: str, kernel: str) -> None:
+        held(torch.from_numpy(np.ascontiguousarray(kernel_canon)), torch.from_numpy(np.ascontiguousarray(want)),
+             f"{what}, against the native oracle", kernel)
+
+    def oracle_root(inst, canon_leaves: np.ndarray, what: str) -> np.ndarray:
+        """The Merkle root of canonical int32 [n, L] leaves (2_1: leaves 2i
+        and 2i + 1 are node i's children), level by level through
+        ``jive_batch_canonical``: int32 [L]."""
+        level = canon_leaves
+        while level.shape[0] > 1:
+            level = oracle(native.jive_batch_canonical, inst, level.reshape(-1, inst.width, level.shape[-1]), 2,
+                           what=what)[:, 0]
+        return level[0]
+
+    def host_sponge(inst, messages: np.ndarray) -> np.ndarray:
+        """The sponge over canonical int32 [B, E, L] messages on the host: the
+        rate adds and sigma in Python ints, each permutation one
+        ``permute_batch_canonical`` over the whole batch; returns canonical
+        int32 [B, DIGEST, L]."""
+        fp, W, rate = inst.field, inst.width, inst.rate
+        L, p = fp.n_limbs, fp.p
+        ints = [[int_from_limbs(e) for e in m] for m in messages]
+        state = [[0] * W for _ in ints]
+
+        def permute(states):
+            arr = np.array([[limbs_from_int(v, L) for v in st] for st in states], dtype=np.int32)
+            return [[int_from_limbs(e) for e in st] for st in
+                    oracle(native.permute_batch_canonical, inst, arr, what="sponge")]
+
+        full, tail = divmod(messages.shape[1], rate)
+        for b in range(full):
+            state = permute([[(st[i] + m[b * rate + i]) % p if i < rate else st[i] for i in range(W)]
+                             for st, m in zip(state, ints)])
+        for st, m in zip(state, ints):
+            for i in range(tail):
+                st[i] = (st[i] + m[full * rate + i]) % p
+            st[tail if tail else -1] = (st[tail if tail else -1] + 1) % p
+        if tail:
+            state = permute(state)
+        return np.array([[limbs_from_int(v, L) for v in st[: inst.digest_size]] for st in state], dtype=np.int32)
 
     # lanes held against the plain version: both ends of N_CHECK, the ragged last block among them
     lanes = torch.cat([torch.arange(N_PLAIN // 2), torch.arange(N_CHECK - (N_PLAIN - N_PLAIN // 2), N_CHECK)]).to(dev)
@@ -355,7 +482,9 @@ def main() -> int:
         N of BatchedSponge's second path), and through ``permutation_with``
         each kernel at N_CHECK.  Every N is a prefix of the same states, so
         one plain call over the lanes held (both ends of each N) covers them
-        all.  Returns that call's ms and its lanes."""
+        all, and one call of the native oracle over the first X + 1 states
+        covers every lane of each N up to X + 1 (and the first X + 1 of
+        N_MSGS_FILL).  Returns the plain call's ms and its lanes."""
         words = inst.field.kernel_words
         top = cuda_backend.permute_group_max(words)
         ns = sorted({5, N_CHECK, top - 3, top, top + 1, N_MSGS_FILL})
@@ -366,14 +495,21 @@ def main() -> int:
         runs = [(n, n <= top, "permutation", cuda_backend.permutation(inst, x[:, :n].contiguous())) for n in ns]
         runs += [(N_CHECK, g, "permutation_with", cuda_backend.permutation_with(inst, x[:, :N_CHECK].contiguous(), g))
                  for g in (True, False)]
+        first = top + 1
+        key = f"permutation {inst.qualified_name}"
+        want = oracle(native.permute_batch_canonical, inst, canonical_host(inst, x[:, :first], inst.width),
+                      what=key)
         for n, group, how, out in runs:
             held_cols = ends(n)
             what = f"{inst.qualified_name} permutation, N = {n}, {'four-lane' if group else 'one-thread'} kernel"
             held(out[:, held_cols.to(dev)], plain[:, torch.tensor([at[int(c)] for c in held_cols], device=dev)], what,
                  perm_key(group, words))
-            print(f"  {what} (through {how}): {len(held_cols)} lanes held against the plain version: identical",
-                  flush=True)
-        print(f"  the plain version on all {len(cols)} lanes held: {plain_ms / 1e3:.2f} s", flush=True)
+            m = min(n, first)
+            held_oracle(canonical_host(inst, out[:, :m], inst.width), want[:m], what, perm_key(group, words))
+            print(f"  {what} (through {how}): {len(held_cols)} lanes held against the plain version, "
+                  f"{'all' if m == n else f'the first {m}'} against the native oracle: identical", flush=True)
+        print(f"  the plain version on all {len(cols)} lanes held: {plain_ms / 1e3:.2f} s; the native oracle on "
+              f"{first}: {oracle_s[key]:.2f} s", flush=True)
         return plain_ms, len(cols)
 
     def run_stream(inst, mont, chunks):
@@ -561,20 +697,19 @@ def main() -> int:
             print(f"  {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
                   f"({plain_ms / 1e3:.2f} s): identical", flush=True)
         # the other 20-limb fields run the same instantiation with their own
-        # constants; their lanes go to the golden model, whose calls cost
-        # milliseconds where the plain version's cost seconds
-        cols = torch.cat([lanes[:N_GOLDEN_LANES // 2], lanes[-(N_GOLDEN_LANES // 2):]])
+        # constants; every lane goes to the native oracle, whose calls cost
+        # a millisecond a lane on one core where the plain version's cost seconds
         for field in FIELDS_20:
             if field == "vesta":
                 continue
             inst = get_instance(field, "anemoi_2_1")
             states = canonical_states(inst, N_CHECK)
             out = jive_compress_batch_fn(inst, 2, device=dev)(states)
-            if decode_states(inst, out[:, :, cols]) != [golden.jive_compress_k(inst, s, 2)
-                                                        for s in decode_states(inst, states[:, :, cols])]:
-                fail(f"{field}/anemoi_2_1: the kernel differs from the golden model")
-            print(f"  {field}/anemoi_2_1 k=2: {N_CHECK} lanes, {N_GOLDEN_LANES} (both ends) held against the golden "
-                  f"model: identical", flush=True)
+            t = oracle_s.get("phase 3", 0.0)
+            want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states, 2), 2, what="phase 3")
+            held_oracle(canonical_host(inst, out, 1), want, f"{field}/anemoi_2_1 k=2", "jive")
+            print(f"  {field}/anemoi_2_1 k=2: all {N_CHECK} lanes held against the native oracle "
+                  f"({oracle_s['phase 3'] - t:.2f} s): identical", flush=True)
 
     # 4 ---------------------------------------------------------------------
     if run(4):
@@ -622,6 +757,13 @@ def main() -> int:
         held(digests.reshape(L, N_FULL)[:, sample], plain, "2^20 Jive, sampled lanes")
         print(f"  {N_SAMPLE} sampled lanes held against the plain version ({jive_plain_ms:.1f} ms): identical",
               flush=True)
+        half = N_ORACLE_FULL // 2
+        cols = torch.cat([torch.arange(half), torch.arange(N_FULL - half, N_FULL)]).to(dev)
+        want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states[:, :, cols], 2), 2,
+                      what="phase 5 lanes")
+        held_oracle(canonical_host(inst, digests[:, :, cols], 1), want, f"2^20 Jive, {N_ORACLE_FULL} lanes", "jive")
+        print(f"  {N_ORACLE_FULL} lanes ({half} at each end) held against the native oracle "
+              f"({oracle_s['phase 5 lanes']:.2f} s): identical", flush=True)
 
         root_ms, root2 = host_time_ms(lambda: tree.root(leaves))
         held(root2, root, "2^20 root, repeated")
@@ -648,8 +790,13 @@ def main() -> int:
         level = small
         while level.shape[1] > 1:
             level = cuda_backend.jive_plain(inst, 2, level_states(level, 2))
-        held(tree.root(small), level, "2^10-leaf root")
+        held(tree.root(small), level, f"{SMALL_TREE}-leaf root")
         print(f"  {SMALL_TREE}-leaf root held against the plain version's: identical", flush=True)
+        first = leaves[:, :ORACLE_TREE].contiguous()
+        want = oracle_root(inst, canonical_host(inst, first, 1)[:, 0], "phase 5 root")
+        held_oracle(canonical_host(inst, tree.root(first), 1)[0, 0], want, f"{ORACLE_TREE}-leaf root", "jive")
+        print(f"  {ORACLE_TREE}-leaf root (the first leaves) held against a reduction by the native oracle "
+              f"({oracle_s['phase 5 root']:.2f} s): identical", flush=True)
 
     # 6 ---------------------------------------------------------------------
     if run(6):
@@ -666,8 +813,12 @@ def main() -> int:
             plain_ms, plain = host_time_ms(lambda: cuda_backend.sponge_plain(inst, E, m[:, cols].contiguous()))
             plain_times[("sponge", iname, E)] = plain_ms
             held(out[:, cols], plain, f"vesta/{iname} sponge E={E}", "sponge")
+            t = oracle_s.get("sponge", 0.0)
+            want = host_sponge(inst, canonical_host(inst, m, E))
+            held_oracle(canonical_host(inst, out, inst.digest_size), want, f"vesta/{iname} sponge E={E}", "sponge")
             print(f"  sponge, vesta/{iname}, E={E}: {n} messages, {len(cols)} held against the plain version "
-                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
+                  f"({plain_ms / 1e3:.2f} s), all {n} against a host sponge over the native oracle's permutation "
+                  f"({oracle_s['sponge'] - t:.2f} s in the oracle): identical", flush=True)
 
     # 7 ---------------------------------------------------------------------
     if run(7):
@@ -685,7 +836,7 @@ def main() -> int:
     if run(8):
         phase(f"8 full size: the sponge over {N_MSGS} messages of {MSG_BYTES} bytes")
         objs = {iname: att.instance("vesta", iname) for iname in ("anemoi_4_3", "anemoi_2_1")}
-        msgs = [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
+        msgs = sponge_msgs = [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
         E = native.num_elements(MSG_BYTES, objs["anemoi_4_3"].params.field)
         rate43 = objs["anemoi_4_3"].params.rate
         L = objs["anemoi_4_3"].params.field.n_limbs
@@ -875,6 +1026,13 @@ def main() -> int:
         held(digests.reshape(L, N_FULL)[:, sample], plain, "BLS12-381 2^20 Jive, sampled lanes", "jive_w12")
         print(f"  {N_SAMPLE} sampled lanes held against the plain version ({jive12_plain_ms:.1f} ms): identical",
               flush=True)
+        half = N_ORACLE_W12 // 2
+        oracle_cols = torch.cat([torch.arange(half), torch.arange(N_FULL - half, N_FULL)]).to(dev)
+        want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states[:, :, oracle_cols], 2), 2,
+                      what="phase 11 bls12_381")
+        held_oracle(canonical_host(inst, digests[:, :, oracle_cols], 1), want, "BLS12-381 2^20 Jive", "jive_w12")
+        print(f"  {N_ORACLE_W12} lanes ({half} at each end) held against the native oracle "
+              f"({oracle_s['phase 11 bls12_381']:.2f} s): identical", flush=True)
 
         root12_ms, (root2, levels) = host_time_ms(lambda: tree.root(leaves, return_levels=True))
         held(root2, root, "BLS12-381 2^20 root with return_levels", "jive_w12")
@@ -913,6 +1071,11 @@ def main() -> int:
         if got != [golden.jive_compress_k(inst, s, 2) for s in ins]:
             fail("BLS12-377 2^20 Jive: sampled lanes differ from the golden model")
         print(f"  {N_GOLDEN_JIVE} sampled lanes held against the golden model: identical", flush=True)
+        want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states[:, :, oracle_cols], 2), 2,
+                      what="phase 11 bls12_377")
+        held_oracle(canonical_host(inst, out[:, :, oracle_cols], 1), want, "BLS12-377 2^20 Jive", "jive_w12")
+        print(f"  {N_ORACLE_W12} lanes ({half} at each end) held against the native oracle "
+              f"({oracle_s['phase 11 bls12_377']:.2f} s): identical", flush=True)
         del states, out
 
     # 12 --------------------------------------------------------------------
@@ -1068,6 +1231,177 @@ def main() -> int:
               f"the {IMAD_PER_CLOCK_PER_SM} IMADs per clock per SM the bound assumes", flush=True)
         mb_launches = {"sqr_chain": mb.sqr_chain.launches, "mad_loop": mb.mad_loop.launches}
 
+    # 16 --------------------------------------------------------------------
+    if run(16):
+        phase("16 full width: the CLI, AsyncByteHasher, the forest and the utils")
+        import torch.distributed as dist
+
+        from anemoi_tpu_torch.dist import forest, mesh
+        from anemoi_tpu_torch.modes.async_pipeline import AsyncByteHasher
+        from anemoi_tpu_torch.utils import debug, profiling
+
+        def reset_counts():
+            for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
+                counter.launches = 0
+            cuda_backend.permutation.group_launches = 0
+
+        slice4 = {}  # this phase's launches, for the kernels line
+        t16 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            files = [tmp / f"m{i:03d}.bin" for i in range(N_CLI_FILES)]
+            for i, f in enumerate(files):
+                f.write_bytes(b"hello world" if i == 0 else rng.bytes(CLI_LENGTHS[i % len(CLI_LENGTHS)]))
+            data = [f.read_bytes() for f in files]
+            merkle_file = tmp / "merkle.bin"
+            merkle_file.write_bytes(rng.bytes(CLI_MERKLE_BYTES))
+            hash_cases = (("vesta", "anemoi_2_1"), ("bls12_381", "anemoi_4_3"))
+            # the CLI runs as its users run it: a process of its own on the card; hash, info and vectors at once
+            procs = {case: run_cli("hash", "--field", case[0], "--instance", case[1], "--stats", *map(str, files))
+                     for case in hash_cases}
+            procs["info"], procs["vectors"] = run_cli("info"), run_cli("vectors")
+            # the references while the CLI runs: the golden model on 16 files, .batch.hash_bytes on all
+            picks = list(range(1, 1 + N_CLI_GOLDEN))  # every length twice
+            with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+                gold = pool.map(golden_hash_bytes, [(*case, data[i]) for case in hash_cases for i in picks])
+            ours = {case: att.instance(*case).batch.hash_bytes(data) for case in hash_cases}
+            results = {key: cli_result(proc, f"cli {key}") for key, proc in procs.items()}
+            for j, (field, iname) in enumerate(hash_cases):
+                obj = att.instance(field, iname)
+                inst, fp = obj.params, obj.params.field
+                lines, stats = results[(field, iname)]
+                canon = digest_export_fn(inst)(torch.from_numpy(ours[(field, iname)]).to(dev))
+                want = [b.hex() for b in digests_to_bytes(inst, canon)]
+                if lines != want:
+                    fail(f"cli hash {field}/{iname}: digests differ from .batch.hash_bytes's")
+                want = [golden.digest_to_bytes(inst, g).hex() for g in gold[j * len(picks):(j + 1) * len(picks)]]
+                if [lines[i] for i in picks] != want:
+                    fail(f"cli hash {field}/{iname}: digests differ from the golden model")
+                counts = {native.num_elements(len(d), fp) for d in data} - {0}
+                launches = {"sponge": sum(e >= inst.rate for e in counts), "permutation": sum(e < inst.rate for e in counts)}
+                if any(stats[k] != v for k, v in launches.items()) or stats["jive"]:
+                    fail(f"cli hash {field}/{iname}: launches {stats}, expected {launches}")
+                slice4[f"cli_hash {field}/{iname}"] = {k: stats[k] for k in launches}
+                print(f"  cli hash, {field}/{iname}: {N_CLI_FILES} files of {len(CLI_LENGTHS)} lengths from 0 to "
+                      f"{MSG_BYTES} bytes ({len(counts) + 1} element counts): digests equal .batch.hash_bytes's, "
+                      f"{N_CLI_GOLDEN} the golden model's; {stats['sponge']} sponge and {stats['permutation']} "
+                      f"permutation launches; {stats['seconds']:.3f} s in the command", flush=True)
+            if results[hash_cases[0]][0][0] != HELLO_WORLD:
+                fail(f"cli hash of b'hello world': {results[hash_cases[0]][0][0]}, not {HELLO_WORLD}")
+            print(f"  cli hash of b'hello world', vesta/anemoi_2_1: {HELLO_WORLD}", flush=True)
+            print(f"  cli info: {results['info'][0][0]}; cli vectors: {len(results['vectors'][0])} files, "
+                  f"exit 0 ({time.perf_counter() - t16:.1f} s into the phase)", flush=True)
+
+            t = time.perf_counter()
+            lines, stats = cli_result(run_cli("merkle", "--stats", str(merkle_file)), "cli merkle")
+            merkle_wall_s = time.perf_counter() - t
+            inst = get_instance("vesta", "anemoi_2_1")
+            fp = inst.field
+            packed = native.pack_bytes(merkle_file.read_bytes(), fp)
+            if packed.shape[0] != N_FULL - 1:
+                fail(f"{CLI_MERKLE_BYTES} bytes packed to {packed.shape[0]} elements")
+            leaves = np.zeros((fp.n_limbs, N_FULL), dtype=np.int32)
+            leaves[:, : packed.shape[0]] = packed.T
+            leaves = lo.to_mont(torch.from_numpy(leaves).to(dev), lo.field_consts(fp))
+            want = golden.digest_to_bytes(inst, lo.decode_ints(MerkleTree(inst, device=dev).root(leaves), fp)).hex()
+            if lines != [want] or stats["jive"] != 20:
+                fail(f"cli merkle: root {lines} against {want}, {stats['jive']} Jive launches")
+            slice4["cli_merkle"] = {"jive": stats["jive"], "seconds": stats["seconds"], "wall_s": merkle_wall_s}
+            print(f"  cli merkle, {CLI_MERKLE_BYTES} bytes ({N_FULL - 1} elements and one zero leaf): root equals "
+                  f"MerkleTree.root's over the same leaves, {stats['jive']} Jive launches; {merkle_wall_s:.3f} s "
+                  f"wall (the process, from start to exit), {stats['seconds']:.3f} s in the command (read, pack, "
+                  f"to Montgomery form, root) ({smi}; {time.perf_counter() - t16:.1f} s into the phase)", flush=True)
+            del leaves
+
+        # AsyncByteHasher over phase 8's messages in 4 batches, against .batch.hash_bytes
+        msgs = sponge_msgs or [rng.bytes(MSG_BYTES) for _ in range(N_MSGS)]
+        obj = att.vesta.anemoi_4_3
+        inst = obj.params
+        batches = [msgs[i:i + ASYNC_BATCH] for i in range(0, N_MSGS, ASYNC_BATCH)]
+
+        def run_async():
+            pipe, got = AsyncByteHasher(inst, device=dev), []
+            for batch in batches:
+                got.extend(pipe.feed(batch))
+            got.extend(pipe.drain())
+            return got
+
+        reset_counts()
+        first_ms, got = host_time_ms(run_async)
+        slice4["async"] = {"sponge": cuda_backend.sponge.launches}
+        if cuda_backend.sponge.launches != len(batches) or cuda_backend.permutation.launches:
+            fail(f"AsyncByteHasher took {cuda_backend.sponge.launches} sponge launches for {len(batches)} batches")
+        want = digest_export_fn(inst)(torch.from_numpy(obj.batch.hash_bytes(msgs)).to(dev)).cpu().numpy()
+        if len(got) != len(batches) or not np.array_equal(np.concatenate(got, axis=2), want):
+            fail("AsyncByteHasher's digests differ from .batch.hash_bytes's")
+        for d in got:
+            debug.check_limbs(d, inst.field, what="AsyncByteHasher digests")
+        timer = profiling.Timer(device=dev)
+        with timer.section("AsyncByteHasher"):
+            run_async()
+        with timer.section(".batch.hash_bytes"):
+            obj.batch.hash_bytes(msgs)
+        with timer.section("packing"):
+            pack_messages(inst, msgs)
+        sec = {k: v * 1e3 for k, v in timer.sections.items()}
+        slice4["async"].update({"ms": sec["AsyncByteHasher"], "hash_bytes_ms": sec[".batch.hash_bytes"],
+                                "pack_ms": sec["packing"], "first_ms": first_ms})
+        print(f"  AsyncByteHasher, vesta/anemoi_4_3, {N_MSGS} x {MSG_BYTES} bytes in {len(batches)} batches of "
+              f"{ASYNC_BATCH}: {len(batches)} sponge launches; digests equal .batch.hash_bytes's and pass "
+              f"check_limbs; end to end {sec['AsyncByteHasher']:.1f} ms against .batch.hash_bytes's "
+              f"{sec['.batch.hash_bytes']:.1f} ms in one call; packing alone {sec['packing']:.1f} ms (utils Timer, "
+              f"synchronized, after the main-path run of {first_ms:.1f} ms; {smi}; "
+              f"{time.perf_counter() - t16:.1f} s into the phase)", flush=True)
+
+        # the forest: world size 1 on NCCL, through a file:// store
+        inst = get_instance("vesta", "anemoi_2_1")
+        fleaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
+        with tempfile.TemporaryDirectory() as store:
+            mesh.initialize_distributed(init_method=f"file://{store}/store", world_size=1, rank=0, timeout=300)
+            try:
+                chips = mesh.chip_mesh()
+                fn = forest.sharded_merkle_root_fn(inst, chips, N_FULL)
+                local = mesh.shard_batch(fleaves, chips)
+                torch.cuda.synchronize()
+                reset_counts()
+                froot = fn(local)
+                torch.cuda.synchronize()
+                slice4["forest"] = {"jive": cuda_backend.jive.launches}
+                held(froot, MerkleTree(inst, device=dev).root(fleaves), "the forest's root", "jive")
+                if slice4["forest"]["jive"] != 20:
+                    fail(f"the forest took {slice4['forest']['jive']} Jive launches, not 20")
+                traffic = mesh.collective_traffic(fn, local)
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+        print(f"  the forest, {N_FULL} Vesta 2_1 leaves over 1 rank ({backend}, file:// store): root equals "
+              f"MerkleTree.root's, {slice4['forest']['jive']} Jive launches; collective_traffic: "
+              f"{json.dumps(traffic)} ({time.perf_counter() - t16:.1f} s into the phase)", flush=True)
+
+        # the utils: one 2^20 Jive under trace, its digests through check_limbs
+        states = canonical_states(inst, N_FULL)
+        compress = jive_compress_batch_fn(inst, 2, device=dev)
+        untraced = compress(states)
+        torch.cuda.synchronize()
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tdir:
+            with profiling.trace(tdir) as prof:
+                traced = compress(states)
+                torch.cuda.synchronize()
+            slice4["trace"] = {"jive": cuda_backend.jive.launches}
+            events = json.loads(prof.trace_path.read_text())["traceEvents"]
+        names = sorted({str(e.get("name")) for e in events if "jive_kernel" in str(e.get("name", ""))})
+        if not names or slice4["trace"]["jive"] != 1:
+            fail(f"the trace names no Jive kernel ({slice4['trace']['jive']} launches)")
+        device_us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                        for e in prof.key_averages() if "jive_kernel" in e.key)
+        held(traced, untraced, "the traced Jive", "jive")
+        canon = digest_export_fn(inst)(traced)
+        debug.check_limbs(canon, inst.field, what="the traced Jive's canonical digests")
+        print(f"  trace of one {N_FULL}-state Jive: {len(events)} events, the kernel named {names}; device time "
+              f"{device_us / 1e3:.3f} ms (profiler); its canonical digests pass check_limbs", flush=True)
+        del states, untraced, traced, canon, fleaves
+
     # 15 --------------------------------------------------------------------
     if run(15):
         phase("15 kernels")
@@ -1096,6 +1430,10 @@ def main() -> int:
             print(f"    {what}: {ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_ms'] / ms:.1%}); at the measured "
                   f"rate {at_measured:.3f} ms ({at_measured / ms:.1%})", flush=True)
 
+        print(f"  the native oracle's seconds, by check (threads over {os.cpu_count()} cores): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in oracle_s.items()) + f"; {sum(oracle_s.values()):.2f} in all",
+              flush=True)
+
         def entry(name, source, replaces, launches, ms, plain_ms, b, **extra):
             return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                     "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
@@ -1105,6 +1443,9 @@ def main() -> int:
         print(json.dumps({"kernels": [
             entry("jive", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive_launches,
                   jive_ms, jive_plain_ms, jive_bound, words=8, lanes=N_FULL, plain_lanes=N_SAMPLE, root_ms=root_ms,
+                  oracle_lanes=N_ORACLE_FULL, oracle_root_leaves=ORACLE_TREE,
+                  cli_merkle_launches=slice4["cli_merkle"]["jive"], cli_merkle_wall_s=slice4["cli_merkle"]["wall_s"],
+                  forest_launches=slice4["forest"]["jive"], trace_launches=slice4["trace"]["jive"],
                   build_s=lib.build_seconds),
             entry("permutation", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
                   perm_group_launches, perm_ms, plain_times[("permutation", "anemoi_4_3")], perm_bound, words=8,
@@ -1122,15 +1463,19 @@ def main() -> int:
                   elements=native.num_elements(MSG_BYTES, get_instance("vesta", "anemoi_4_3").field),
                   plain_messages=N_PLAIN, plain_elements=4, ms_2_1=sponge_ms["anemoi_2_1"],
                   bound_ms_2_1=sponge_bound["anemoi_2_1"]["bound_ms"], ms_65536=fill_ms,
-                  bound_ms_65536=fill_bound["bound_ms"], e2e_ms=e2e_ms, build_s=sponge_lib.build_seconds),
+                  bound_ms_65536=fill_bound["bound_ms"], e2e_ms=e2e_ms, oracle_messages=N_CHECK,
+                  cli_hash_launches=slice4["cli_hash vesta/anemoi_2_1"]["sponge"],
+                  async_launches=slice4["async"]["sponge"], async_ms=slice4["async"]["ms"],
+                  async_hash_bytes_ms=slice4["async"]["hash_bytes_ms"], build_s=sponge_lib.build_seconds),
             entry("jive_w12", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive12_launches,
                   jive12_ms, jive12_plain_ms, jive12_bound, words=12, instance="bls12_381/anemoi_2_1", lanes=N_FULL,
-                  plain_lanes=N_SAMPLE, root_ms=root12_ms, ms_bls12_377=jive377_ms,
+                  plain_lanes=N_SAMPLE, oracle_lanes=N_ORACLE_W12, root_ms=root12_ms, ms_bls12_377=jive377_ms,
                   bound_ms_bls12_377=jive377_bound["bound_ms"], build_s=lib12.build_seconds),
             entry("permutation_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
                   perm12_group_launches, perm12_ms, plain_times[("permutation_w12", "anemoi_4_3")], perm12_bound,
                   words=12, kernel="permute_group_kernel", instance="bls12_381/anemoi_4_3", lanes=N_MSGS,
                   plain_instance="bls12_377/anemoi_4_3", plain_lanes=plain_lanes[12], crossover=crossover[12],
+                  cli_hash_launches=slice4["cli_hash bls12_381/anemoi_4_3"]["permutation"],
                   sweep={n: {"four_lane_ms": t[True], "one_thread_ms": t[False]} for n, t in sweep12.items()},
                   batched_sponge_ms=stream12_ms, build_s=sponge_lib12.build_seconds),
             entry("permutation_thread_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
@@ -1141,7 +1486,9 @@ def main() -> int:
             entry("sponge_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
                   sponge12_launches, sponge12_ms, plain_times[("sponge_w12", "anemoi_4_3", 4)], sponge12_bound,
                   words=12, instance="bls12_381/anemoi_4_3", messages=N_MSGS, elements=E, plain_messages=N_PLAIN,
-                  plain_elements=4, e2e_ms=e2e12_ms, pack_ms=pack12_ms, build_s=sponge_lib12.build_seconds),
+                  plain_elements=4, e2e_ms=e2e12_ms, pack_ms=pack12_ms,
+                  cli_hash_launches=slice4["cli_hash bls12_381/anemoi_4_3"]["sponge"],
+                  build_s=sponge_lib12.build_seconds),
             entry("sqr_chain", "anemoi_tpu_torch/csrc/microbench.cu", "tools/mxu_prototype.py:110",
                   mb_launches["sqr_chain"], chain_bls["ms2"], chain_plain_ms["bls12_381"], ops(chain_bound_ms),
                   instance="bls12_381", lanes=MB_LANES, squarings=CHAIN_TRIPS[1], plain_lanes=8, plain_squarings=8,

@@ -145,6 +145,9 @@ def test_import_leaves_out_jax():
         att.vesta.anemoi_2_1.batch
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "anemoi_tpu")]
         assert not bad, bad
+        new = ["cli", "dist.forest", "dist.mesh", "ff.native", "modes.async_pipeline", "utils.debug",
+               "utils.profiling"]
+        assert all("anemoi_tpu_torch." + m in sys.modules for m in new)
         print("ok")
         """
     )

@@ -1,0 +1,109 @@
+"""The JAX package's keyword arguments through the port's entry points, on
+the CPU.
+
+Tolerance: exact.  Every call the port used to reject with a TypeError
+(``backend``, ``chunk_b``, ``block_b``, ``mul_impl``, ``ladder``,
+``unroll``) now runs on the plain path and returns the reference's
+outputs, which are its golden model's (``anemoi_tpu.ff.golden``): names
+change no output.  A ``mul_impl`` or ``ladder`` name that the JAX package
+rejects (``anemoi_tpu.ff.limb_ops.field_consts``) raises ValueError in
+the port's ``MerkleTree`` too.
+"""
+
+import numpy as np
+import pytest
+
+import anemoi_tpu_torch as att
+from anemoi_tpu.ff import golden as jgolden
+from anemoi_tpu.ff import limb_ops as jlo
+from anemoi_tpu.fields import params as jparams
+from anemoi_tpu_torch.ff import limb_ops as lo
+from anemoi_tpu_torch.fields.params import get_instance
+from anemoi_tpu_torch.merkle.tree import MerkleTree
+from anemoi_tpu_torch.modes import batched as bm
+from anemoi_tpu_torch.modes.bytes_pipeline import hash_bytes_batch
+from anemoi_tpu_torch.modes.streaming import BatchedSponge
+from anemoi_tpu_torch.permutation.batched import permutation_fn
+
+
+def _ref(field, iname):
+    return jparams.get_instance(field, iname)
+
+
+def _states(inst, n, seed):
+    rng = np.random.default_rng(seed)
+    return [[int(rng.integers(0, 2**62)) for _ in range(inst.width)] for _ in range(n)]
+
+
+@pytest.mark.parametrize("backend", ["jit", "pallas", "cuda", "xla"])
+def test_batch_hash_bytes_backend(backend):
+    """att.vesta.anemoi_4_3.batch.hash_bytes([b"abc", b""], backend=...):
+    "pallas" names the TPU kernel, "jit" the XLA graph, "cuda" the port's
+    kernels, and the reference hashes any other name as "jit"."""
+    obj = att.vesta.anemoi_4_3
+    msgs = [b"abc", b""]
+    got = obj.batch.decode_states(obj.batch.hash_bytes(msgs, backend=backend, device="cpu"))
+    assert got == [jgolden.hash_bytes(_ref("vesta", "anemoi_4_3"), m) for m in msgs]
+
+
+def test_hash_bytes_batch_and_sponge_fn_backend():
+    inst = get_instance("vesta", "anemoi_2_1")
+    ref = _ref("vesta", "anemoi_2_1")
+    msgs = [b"x" * 20, b"y" * 20]  # one element each
+    got = bm.decode_states(inst, hash_bytes_batch(inst, msgs, backend="pallas", device="cpu"))
+    assert got == [jgolden.hash_bytes(ref, m) for m in msgs]
+    elems = [[5], [7]]  # two messages of one element: [E=1, L, B=2]
+    fn = bm.sponge_hash_batch_fn(inst, 1, backend="pallas", block_b=256, device="cpu")
+    got = bm.decode_states(inst, fn(bm.encode_states(inst, elems, device="cpu")))
+    assert got == [jgolden.hash_field(ref, e) for e in elems]
+
+
+def test_batched_sponge_backend():
+    inst = get_instance("vesta", "anemoi_2_1")
+    elems = [[11], [13]]
+    sponge = BatchedSponge(inst, 2, backend="jit", block_b=64, device="cpu")
+    sponge.absorb(bm.encode_states(inst, elems, device="cpu"))
+    got = bm.decode_states(inst, sponge.finalize())
+    assert got == [jgolden.hash_field(_ref("vesta", "anemoi_2_1"), e) for e in elems]
+
+
+def test_merkle_tree_keywords():
+    """MerkleTree(inst, backend=, chunk_b=, mul_impl=, ladder=) on a
+    2-leaf tree, and the names the reference rejects."""
+    inst = get_instance("vesta", "anemoi_2_1")
+    leaves = [3, 4]
+    tree = MerkleTree(inst, backend="jit", chunk_b=8, mul_impl="cios2", ladder="sw4", device="cpu")
+    got = lo.decode_ints(tree.root(lo.encode_ints(leaves, inst.field)), inst.field)
+    assert got == jgolden.jive_compress_k(_ref("vesta", "anemoi_2_1"), leaves, 2)
+    for kw in ({"mul_impl": "mxu"}, {"mul_impl": "cios7"}, {"ladder": "chainseg"}, {"ladder": "chainseg12"},
+               {"ladder": "chain3", "mul_impl": "parallel"}):
+        MerkleTree(inst, backend="pallas", device="cpu", **kw)
+        jlo.field_consts(jparams.get_field("vesta"), kw.get("mul_impl", "cios"), kw.get("ladder", "fixed4"))
+
+
+@pytest.mark.parametrize("kw", [{"mul_impl": "karatsuba"}, {"mul_impl": "ciosx"}, {"ladder": "fixed8"},
+                                {"ladder": "chainseg0"}, {"ladder": "chainsegx"}])
+def test_rejected_tuning_names(kw):
+    inst = get_instance("vesta", "anemoi_2_1")
+    with pytest.raises(ValueError):
+        MerkleTree(inst, backend="pallas", device="cpu", **kw)
+    with pytest.raises(ValueError):
+        jlo.field_consts(jparams.get_field("vesta"), kw.get("mul_impl", "cios"), kw.get("ladder", "fixed4"))
+
+
+def test_unroll():
+    """jive_compress_batch_fn(inst, 2, unroll=False), merge_batch_fn(inst,
+    unroll=True) and permutation_fn(inst, unroll=True)."""
+    two, four = get_instance("vesta", "anemoi_2_1"), get_instance("vesta", "anemoi_4_3")
+    ref2, ref4 = _ref("vesta", "anemoi_2_1"), _ref("vesta", "anemoi_4_3")
+    states = _states(two, 2, 1)
+    got = bm.decode_states(two, bm.jive_compress_batch_fn(two, 2, unroll=False, device="cpu")(
+        bm.encode_states(two, states, device="cpu")))
+    assert got == [jgolden.jive_compress_k(ref2, s, 2) for s in states]
+    d0, d1 = [[1], [2]], [[3], [4]]
+    enc = lambda ds: bm.encode_states(four, ds, device="cpu")
+    got = bm.decode_states(four, bm.merge_batch_fn(four, unroll=True, device="cpu")(enc(d0), enc(d1)))
+    assert got == [jgolden.merge(ref4, a, b) for a, b in zip(d0, d1)]
+    states = _states(four, 2, 2)
+    got = bm.decode_states(four, permutation_fn(four, unroll=True)(enc(states)))
+    assert got == [jgolden.permutation(ref4, s) for s in states]
