@@ -107,7 +107,13 @@ def collective_traffic(fn, *args) -> dict:
     {"ops": [{op, shape, bytes_per_device}, ...], "total_bytes_per_device":
     N, "counts": {op: n}}, the JAX package's format."""
     fn(*args)
-    ops = list(fn.collectives)
+    return summarize_collectives(fn.collectives)
+
+
+def summarize_collectives(records: list) -> dict:
+    """``collective_traffic``'s report of a list of ``collective_record``s,
+    such as a forest function's ``collectives`` after a call."""
+    ops = list(records)
     counts: dict = {}
     for o in ops:
         counts[o["op"]] = counts.get(o["op"], 0) + 1

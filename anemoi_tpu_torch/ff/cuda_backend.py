@@ -260,6 +260,14 @@ def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> torch.Te
 sponge.launches = 0
 
 
+def launch_counts() -> dict:
+    """The wrappers' launch counts now: "jive", "permutation" (both
+    permutation kernels), "four_lane" (those of them that went to the
+    four-lane kernel) and "sponge"."""
+    return {"jive": jive.launches, "permutation": permutation.launches, "four_lane": permutation.group_launches,
+            "sponge": sponge.launches}
+
+
 # --------------------------------------------------------------------------
 # the libraries
 # --------------------------------------------------------------------------

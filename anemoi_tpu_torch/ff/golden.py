@@ -19,6 +19,10 @@ from __future__ import annotations
 from ..fields.params import FieldParams, InstanceParams
 
 
+class ParityError(AssertionError):
+    """Lanes of a device batch differ from the golden model."""
+
+
 # --------------------------------------------------------------------------
 # Permutation layers (spec: reference src/traits.rs)
 # --------------------------------------------------------------------------

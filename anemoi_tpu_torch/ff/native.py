@@ -7,7 +7,12 @@ Counterpart of ``anemoi_tpu/ff/native.py``:
   * ``permute_batch_canonical`` / ``jive_batch_canonical``: a 64-bit-word
     Montgomery permutation on the host's CPU (one core), independent of
     the port's limb arithmetic and kernels, to check device batches at
-    rates the golden model over Python ints cannot reach.
+    rates the golden model over Python ints cannot reach;
+  * around it, what the port's checks need to hold a device batch: the
+    oracle's calls split over the host's cores (``threaded``), Montgomery
+    limbs on any device to canonical host arrays and back
+    (``canonical_host``, ``montgomery``), the sponge (``host_sponge``) and
+    a Merkle tree's levels (``tree_levels``).
 
 It binds the same source, ``native/anemoi_host.cpp``, which stays as it
 is; the port builds its own copy with g++ into ``build/anemoi_tpu_torch/``
@@ -19,12 +24,16 @@ in numpy over whole arrays, never one ``ctypes`` call a row.
 from __future__ import annotations
 
 import ctypes as ct
+import os
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 from .. import _build
-from ..fields.params import LIMB_BITS, LIMB_MASK, FieldParams, InstanceParams
+from ..fields.params import LIMB_BITS, LIMB_MASK, FieldParams, InstanceParams, int_from_limbs, limbs_from_int
+from . import limb_ops as lo
 
 SOURCE = _build.ROOT / "native" / "anemoi_host.cpp"
 MAX_WORDS = 6  # MAX_LIMBS of anemoi_host.cpp: up to 384-bit fields
@@ -224,3 +233,76 @@ def jive_batch_canonical(inst: InstanceParams, states13: np.ndarray, k: int = 2)
     library().anemoi_jive_batch(_field_ctx(inst.field), _instance(inst).ctx, st.ctypes.data, out.ctypes.data,
                                 st.shape[0], k)
     return _canonical_limbs(inst, out)
+
+
+# --------------------------------------------------------------------------
+# holding device batches: the oracle over the host's cores
+# --------------------------------------------------------------------------
+
+
+def threaded(fn, inst: InstanceParams, states13: np.ndarray, *args) -> np.ndarray:
+    """``fn`` (``permute_batch_canonical`` or ``jive_batch_canonical``) over
+    canonical int32 [B, W, L] states, split over the host's cores: the C
+    calls release the GIL."""
+    parts = [p for p in np.array_split(states13, os.cpu_count() or 1) if len(p)]
+    if len(parts) <= 1:
+        return fn(inst, states13, *args)
+    with ThreadPoolExecutor(len(parts)) as pool:
+        return np.concatenate(list(pool.map(lambda p: fn(inst, p, *args), parts)))
+
+
+def canonical_host(inst: InstanceParams, x: torch.Tensor) -> np.ndarray:
+    """int32 [rows, L, n] (or [rows*L, n]) Montgomery limbs on any device ->
+    canonical int32 [n, rows, L] on the host, the oracle's layout."""
+    L, n = inst.field.n_limbs, x.shape[-1]
+    x = x.reshape(-1, L, n)
+    rows = x.shape[0]
+    flat = x.permute(1, 0, 2).reshape(L, rows * n)
+    return lo.from_mont(flat, lo.field_consts(inst.field)).reshape(L, rows, n).permute(2, 1, 0).cpu().numpy()
+
+
+def montgomery(inst: InstanceParams, canon: np.ndarray) -> torch.Tensor:
+    """Canonical int32 [n, rows, L] on the host -> Montgomery int32
+    [rows, L, n] on the CPU: the inverse of ``canonical_host``."""
+    n, rows, L = canon.shape
+    flat = torch.from_numpy(np.ascontiguousarray(canon.transpose(2, 1, 0))).reshape(L, rows * n)
+    return lo.to_mont(flat, lo.field_consts(inst.field)).reshape(L, rows, n).permute(1, 0, 2).contiguous()
+
+
+def host_sponge(inst: InstanceParams, messages: np.ndarray) -> np.ndarray:
+    """The sponge over canonical int32 [B, E, L] messages on the host: the
+    rate adds and sigma in Python ints, each permutation one ``threaded``
+    oracle call over the whole batch; canonical int32 [B, DIGEST, L]."""
+    fp, W, rate = inst.field, inst.width, inst.rate
+    L, p = fp.n_limbs, fp.p
+    ints = [[int_from_limbs(e) for e in m] for m in messages]
+    state = [[0] * W for _ in ints]
+
+    def permute(states):
+        arr = np.array([[limbs_from_int(v, L) for v in st] for st in states], dtype=np.int32)
+        return [[int_from_limbs(e) for e in st] for st in threaded(permute_batch_canonical, inst, arr)]
+
+    full, tail = divmod(messages.shape[1], rate)
+    for b in range(full):
+        state = permute([[(st[i] + m[b * rate + i]) % p if i < rate else st[i] for i in range(W)]
+                         for st, m in zip(state, ints)])
+    for st, m in zip(state, ints):
+        for i in range(tail):
+            st[i] = (st[i] + m[full * rate + i]) % p
+        st[tail if tail else -1] = (st[tail if tail else -1] + 1) % p
+    if tail:
+        state = permute(state)
+    return np.array([[limbs_from_int(v, L) for v in st[: inst.digest_size]] for st in state], dtype=np.int32)
+
+
+def tree_levels(inst: InstanceParams, leaves13: np.ndarray) -> list[np.ndarray]:
+    """A Merkle tree's levels above canonical int32 [n, L] leaves (children
+    arity*i to arity*i + arity - 1 of node i, arity = WIDTH), each level one
+    ``threaded`` Jive call: canonical int32 [n / arity^lv, L], lv = 1 up to
+    the root."""
+    k = inst.width // inst.digest_size
+    levels, level = [], leaves13
+    while level.shape[0] > 1:
+        level = threaded(jive_batch_canonical, inst, level.reshape(-1, inst.width, level.shape[-1]), k)[:, 0]
+        levels.append(level)
+    return levels

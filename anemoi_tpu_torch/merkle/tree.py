@@ -154,3 +154,22 @@ class MerkleTree:
             cur = golden.jive_compress_k(self.inst, children, self.k)[0]
             idx //= self.arity
         return idx == 0 and cur == decode_ints(_host(root).reshape(-1, 1), fp)[0]
+
+
+def check_levels(inst: InstanceParams, levels: list, per_level: int = 4) -> int:
+    """Recomputes up to ``per_level`` nodes of every level above the leaves
+    (half at each end) with the golden model from their children in the
+    level below, as ``MerkleTree.root(..., return_levels=True)`` returns
+    them; returns the count held, or raises ``golden.ParityError``.  This
+    checks a tree of any size in milliseconds."""
+    arity, k, fp = inst.width, inst.width // inst.digest_size, inst.field
+    held = 0
+    for lv in range(1, len(levels)):
+        n = int(levels[lv].shape[1])
+        for j in sorted(set(range(min(n, per_level // 2))) | set(range(max(n - per_level // 2, 0), n))):
+            children = decode_ints(levels[lv - 1][:, arity * j:arity * (j + 1)], fp)
+            if decode_ints(levels[lv][:, j:j + 1], fp) != golden.jive_compress_k(inst, children, k):
+                raise golden.ParityError(f"{inst.qualified_name} root: node {j} of level {lv} differs from the "
+                                         f"golden model")
+            held += 1
+    return held

@@ -124,9 +124,24 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      2^20 Jive under ``utils.profiling.trace`` (the trace names the
      kernel) and ``utils.debug.check_limbs`` on the phase's canonical
      digests;
- 15. one JSON line of kernels: launches, error, times, bound, with this
-     slice's launches beside; every bound beside the IMAD rate that phase
-     14 measured; the native oracle's seconds.
+ 17. the fifth slice's programs, each run as its users run it, a process
+     of its own (run before 15): the default bench
+     (``python3 -m anemoi_tpu_torch.bench``: the headline and all 7
+     secondary configs of ``bench.py:620-660`` with their parity checked,
+     the headline within 10% of phase 5's rate, the arity-4 tree over 2^24
+     leaves beside its bound; in this process, the tree's first level,
+     Jive-4 over 2^22 states from the bench's leaves, 257 lanes at both
+     ends against the plain version and 65,536 against the native oracle,
+     and each of the 14 instantiations at the matrix's 2^18 states, 4,096
+     lanes against the oracle), the matrix (``--matrix --n 262144``: 14 rows),
+     the verifier (``tools.verify_cuda --fields all``: ALL PASS), the entry
+     (``graft_entry.entry()`` on the card bit-identical to its function on
+     the CPU on all 256 lanes; ``dryrun_multichip(2)`` on gloo ranks) and
+     the demo (``tools.multihost_demo``: 2 gloo workers, then 1 NCCL rank);
+     the bench's and the verifier's launches, which they report;
+ 15. one JSON line of kernels: launches, error, times, bound, with the
+     fourth and fifth slices' launches beside; every bound beside the IMAD
+     rate that phase 14 measured; the native oracle's seconds.
 
 The tolerance everywhere is exact: integer arithmetic, canonical outputs.
 Where the plain version would take minutes (a 10 KB message is 73 to 331
@@ -138,8 +153,8 @@ package beside this file, it exits non-zero before printing any result.
 
 For development, ``--phases 6,8`` runs only the phases named, with phases
 1 and 2 (the device, the builds) and what they need (12 needs 11; 15 needs
-all): a short run on the card.  Such a run prints no result line.  Phases
-run in the order 1 to 14, 16, 15.
+all; 17 needs 5): a short run on the card.  Such a run prints no result
+line.  Phases run in the order 1 to 14, 16, 17, 15.
 """
 
 from __future__ import annotations
@@ -231,6 +246,14 @@ ASYNC_BATCH = 1024  # AsyncByteHasher's batch: phase 8's 4,096 messages in 4 bat
 PERM_SWEEP = (4096, 8192, 16384, 65536)  # the crossover sweep: both permutation kernels at each N
 N_STREAMS = 1 << 16  # BatchedSponge's second path: a batch above the crossover, for the one-thread kernel
 STREAM_BLOCKS = 8  # rate-blocks it absorbs, then a tail of one element
+BENCH_CONFIGS = ("multichip_dryrun_collective_bytes_per_device", "vesta_anemoi_4_3_jive_2to1",
+                 "bls12_377_anemoi_2_1_jive_2to1", "vesta_anemoi_4_3_sponge_10kb", "bls12_377_anemoi_4_3_sponge_10kb",
+                 "vesta_anemoi_2_1_merkle_2p20_arity2", "vesta_anemoi_4_3_merkle_2p24_arity4")  # bench.py:620-656
+HEADLINE_TOLERANCE = 0.10  # the bench's headline against phase 5's rate: both time the same kernel
+TREE_LEAVES = 1 << 24  # BASELINE config 4: the arity-4 Vesta 4_3 tree
+MATRIX_N = 1 << 18
+N_ORACLE_MATRIX = 1 << 12  # phase 17: lanes of each instantiation's Jive at MATRIX_N against the native oracle
+DEMO_LEAVES = 64
 
 
 def was(key: str, ms: float) -> str:
@@ -248,15 +271,30 @@ def golden_hash_bytes(args) -> list:
     return golden.hash_bytes(get_instance(field, iname), data)
 
 
-ALL_PHASES = frozenset(range(1, 17))
-PHASE_NEEDS = {12: {11}, 15: set(range(3, 17)) - {15}}  # 12 resumes 11's tree; 15 reports every phase
+ALL_PHASES = frozenset(range(1, 18))
+# 12 resumes 11's tree; 15 reports every phase; 17 holds the bench's headline against phase 5's time
+PHASE_NEEDS = {12: {11}, 15: set(range(3, 18)) - {15}, 17: {5}}
+
+
+def run_module(module: str, *args: str) -> subprocess.Popen:
+    """``python -m MODULE ARGS`` from the checkout, a process of its own."""
+    return subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
 
 
 def run_cli(*args: str) -> subprocess.Popen:
     """``python -m anemoi_tpu_torch.cli ARGS`` from the checkout, on the card."""
-    return subprocess.Popen([sys.executable, "-m", "anemoi_tpu_torch.cli", *args], cwd=ROOT, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    return run_module("anemoi_tpu_torch.cli", *args)
+
+
+def module_result(proc: subprocess.Popen, what: str, timeout: float = 600) -> list[str]:
+    """Waits for a program run by ``run_module``; fails on a non-zero exit.
+    Returns its lines of output."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        fail(f"{what} exited {proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    return out.splitlines()
 
 
 def cli_result(proc: subprocess.Popen, what: str, timeout: float = 600) -> tuple[list[str], dict]:
@@ -335,13 +373,14 @@ def main() -> int:
     from anemoi_tpu_torch.ff import cuda_backend, golden, native
     from anemoi_tpu_torch.ff import limb_ops as lo
     from anemoi_tpu_torch.ff.limb_ops import random_canonical
+    from anemoi_tpu_torch.ff.native import canonical_host
     from anemoi_tpu_torch.fields.params import (
+        FIELD_NAMES,
         FIELDS_20,
         FIELDS_30,
+        INSTANCE_NAMES,
         get_instance,
-        int_from_limbs,
         inv_alpha_chain,
-        limbs_from_int,
     )
     from anemoi_tpu_torch.merkle.tree import MerkleTree, level_states
     from anemoi_tpu_torch.modes.batched import (
@@ -376,64 +415,22 @@ def main() -> int:
     oracle_s = {}  # seconds of the native oracle's calls, by check
     sponge_msgs = None  # phase 8's messages, which phase 16 hashes again
 
-    def oracle(fn, inst, states, *args, what: str):
-        """fn, ``native.permute_batch_canonical`` or ``jive_batch_canonical``,
-        over canonical int32 [B, W, L] states, split over the host's cores
-        (the C calls release the GIL); its seconds go to oracle_s[what]."""
+    def oracle(fn, *args, what: str):
+        """``fn(*args)``, one of ``native``'s oracle calls (``threaded``,
+        ``host_sponge``, ``tree_levels``); its seconds go to oracle_s[what]."""
         t = time.perf_counter()
-        parts = [part for part in np.array_split(states, os.cpu_count() or 1) if len(part)]
-        with ThreadPoolExecutor(len(parts)) as pool:
-            out = np.concatenate(list(pool.map(lambda part: fn(inst, part, *args), parts)))
+        out = fn(*args)
         oracle_s[what] = oracle_s.get(what, 0.0) + time.perf_counter() - t
         return out
 
-    def canonical_host(inst, x, rows: int) -> np.ndarray:
-        """int32 [rows*L, n] (or [rows, L, n]) Montgomery limbs on the card ->
-        canonical int32 [n, rows, L] on the host, the oracle's layout."""
-        L, n = inst.field.n_limbs, x.shape[-1]
-        flat = x.reshape(rows, L, n).permute(1, 0, 2).reshape(L, rows * n)
-        return lo.from_mont(flat, lo.field_consts(inst.field)).reshape(L, rows, n).permute(2, 1, 0).cpu().numpy()
+    def oracle_jive(inst, states, k: int, *, what: str) -> np.ndarray:
+        """Jive-k of int32 [W, L, n] Montgomery states on the card by the
+        native oracle: canonical int32 [n, W/k, L]."""
+        return oracle(native.threaded, native.jive_batch_canonical, inst, canonical_host(inst, states), k, what=what)
 
     def held_oracle(kernel_canon: np.ndarray, want: np.ndarray, what: str, kernel: str) -> None:
         held(torch.from_numpy(np.ascontiguousarray(kernel_canon)), torch.from_numpy(np.ascontiguousarray(want)),
              f"{what}, against the native oracle", kernel)
-
-    def oracle_root(inst, canon_leaves: np.ndarray, what: str) -> np.ndarray:
-        """The Merkle root of canonical int32 [n, L] leaves (2_1: leaves 2i
-        and 2i + 1 are node i's children), level by level through
-        ``jive_batch_canonical``: int32 [L]."""
-        level = canon_leaves
-        while level.shape[0] > 1:
-            level = oracle(native.jive_batch_canonical, inst, level.reshape(-1, inst.width, level.shape[-1]), 2,
-                           what=what)[:, 0]
-        return level[0]
-
-    def host_sponge(inst, messages: np.ndarray) -> np.ndarray:
-        """The sponge over canonical int32 [B, E, L] messages on the host: the
-        rate adds and sigma in Python ints, each permutation one
-        ``permute_batch_canonical`` over the whole batch; returns canonical
-        int32 [B, DIGEST, L]."""
-        fp, W, rate = inst.field, inst.width, inst.rate
-        L, p = fp.n_limbs, fp.p
-        ints = [[int_from_limbs(e) for e in m] for m in messages]
-        state = [[0] * W for _ in ints]
-
-        def permute(states):
-            arr = np.array([[limbs_from_int(v, L) for v in st] for st in states], dtype=np.int32)
-            return [[int_from_limbs(e) for e in st] for st in
-                    oracle(native.permute_batch_canonical, inst, arr, what="sponge")]
-
-        full, tail = divmod(messages.shape[1], rate)
-        for b in range(full):
-            state = permute([[(st[i] + m[b * rate + i]) % p if i < rate else st[i] for i in range(W)]
-                             for st, m in zip(state, ints)])
-        for st, m in zip(state, ints):
-            for i in range(tail):
-                st[i] = (st[i] + m[full * rate + i]) % p
-            st[tail if tail else -1] = (st[tail if tail else -1] + 1) % p
-        if tail:
-            state = permute(state)
-        return np.array([[limbs_from_int(v, L) for v in st[: inst.digest_size]] for st in state], dtype=np.int32)
 
     # lanes held against the plain version: both ends of N_CHECK, the ragged last block among them
     lanes = torch.cat([torch.arange(N_PLAIN // 2), torch.arange(N_CHECK - (N_PLAIN - N_PLAIN // 2), N_CHECK)]).to(dev)
@@ -497,7 +494,7 @@ def main() -> int:
                  for g in (True, False)]
         first = top + 1
         key = f"permutation {inst.qualified_name}"
-        want = oracle(native.permute_batch_canonical, inst, canonical_host(inst, x[:, :first], inst.width),
+        want = oracle(native.threaded, native.permute_batch_canonical, inst, canonical_host(inst, x[:, :first]),
                       what=key)
         for n, group, how, out in runs:
             held_cols = ends(n)
@@ -505,7 +502,7 @@ def main() -> int:
             held(out[:, held_cols.to(dev)], plain[:, torch.tensor([at[int(c)] for c in held_cols], device=dev)], what,
                  perm_key(group, words))
             m = min(n, first)
-            held_oracle(canonical_host(inst, out[:, :m], inst.width), want[:m], what, perm_key(group, words))
+            held_oracle(canonical_host(inst, out[:, :m]), want[:m], what, perm_key(group, words))
             print(f"  {what} (through {how}): {len(held_cols)} lanes held against the plain version, "
                   f"{'all' if m == n else f'the first {m}'} against the native oracle: identical", flush=True)
         print(f"  the plain version on all {len(cols)} lanes held: {plain_ms / 1e3:.2f} s; the native oracle on "
@@ -527,8 +524,8 @@ def main() -> int:
         L = inst.field.n_limbs
         gen = torch.Generator(device=dev).manual_seed(seed)
         x = torch.randint(0, 1 << 13, (rows, L, n), generator=gen, device=dev, dtype=torch.int32)
-        x[:, L - 1] &= (1 << (inst.field.p.bit_length() - 1 - 13 * (L - 1))) - 1  # below 2^(bits(p) - 1)
-        return x
+        keep = np.clip(inst.field.p.bit_length() - 1 - 13 * np.arange(L), 0, 13)  # below 2^(bits(p) - 1)
+        return x & torch.from_numpy(((1 << keep) - 1).astype(np.int32)).to(dev).view(1, L, 1)
 
     def perm_sweep(inst) -> dict:
         """Both permutation kernels at each N of PERM_SWEEP ({N: {group: ms}},
@@ -706,8 +703,8 @@ def main() -> int:
             states = canonical_states(inst, N_CHECK)
             out = jive_compress_batch_fn(inst, 2, device=dev)(states)
             t = oracle_s.get("phase 3", 0.0)
-            want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states, 2), 2, what="phase 3")
-            held_oracle(canonical_host(inst, out, 1), want, f"{field}/anemoi_2_1 k=2", "jive")
+            want = oracle_jive(inst, states, 2, what="phase 3")
+            held_oracle(canonical_host(inst, out), want, f"{field}/anemoi_2_1 k=2", "jive")
             print(f"  {field}/anemoi_2_1 k=2: all {N_CHECK} lanes held against the native oracle "
                   f"({oracle_s['phase 3'] - t:.2f} s): identical", flush=True)
 
@@ -759,9 +756,8 @@ def main() -> int:
               flush=True)
         half = N_ORACLE_FULL // 2
         cols = torch.cat([torch.arange(half), torch.arange(N_FULL - half, N_FULL)]).to(dev)
-        want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states[:, :, cols], 2), 2,
-                      what="phase 5 lanes")
-        held_oracle(canonical_host(inst, digests[:, :, cols], 1), want, f"2^20 Jive, {N_ORACLE_FULL} lanes", "jive")
+        want = oracle_jive(inst, states[:, :, cols], 2, what="phase 5 lanes")
+        held_oracle(canonical_host(inst, digests[:, :, cols]), want, f"2^20 Jive, {N_ORACLE_FULL} lanes", "jive")
         print(f"  {N_ORACLE_FULL} lanes ({half} at each end) held against the native oracle "
               f"({oracle_s['phase 5 lanes']:.2f} s): identical", flush=True)
 
@@ -793,8 +789,8 @@ def main() -> int:
         held(tree.root(small), level, f"{SMALL_TREE}-leaf root")
         print(f"  {SMALL_TREE}-leaf root held against the plain version's: identical", flush=True)
         first = leaves[:, :ORACLE_TREE].contiguous()
-        want = oracle_root(inst, canonical_host(inst, first, 1)[:, 0], "phase 5 root")
-        held_oracle(canonical_host(inst, tree.root(first), 1)[0, 0], want, f"{ORACLE_TREE}-leaf root", "jive")
+        want = oracle(native.tree_levels, inst, canonical_host(inst, first)[:, 0], what="phase 5 root")[-1][0]
+        held_oracle(canonical_host(inst, tree.root(first))[0, 0], want, f"{ORACLE_TREE}-leaf root", "jive")
         print(f"  {ORACLE_TREE}-leaf root (the first leaves) held against a reduction by the native oracle "
               f"({oracle_s['phase 5 root']:.2f} s): identical", flush=True)
 
@@ -814,8 +810,8 @@ def main() -> int:
             plain_times[("sponge", iname, E)] = plain_ms
             held(out[:, cols], plain, f"vesta/{iname} sponge E={E}", "sponge")
             t = oracle_s.get("sponge", 0.0)
-            want = host_sponge(inst, canonical_host(inst, m, E))
-            held_oracle(canonical_host(inst, out, inst.digest_size), want, f"vesta/{iname} sponge E={E}", "sponge")
+            want = oracle(native.host_sponge, inst, canonical_host(inst, m), what="sponge")
+            held_oracle(canonical_host(inst, out), want, f"vesta/{iname} sponge E={E}", "sponge")
             print(f"  sponge, vesta/{iname}, E={E}: {n} messages, {len(cols)} held against the plain version "
                   f"({plain_ms / 1e3:.2f} s), all {n} against a host sponge over the native oracle's permutation "
                   f"({oracle_s['sponge'] - t:.2f} s in the oracle): identical", flush=True)
@@ -1028,9 +1024,8 @@ def main() -> int:
               flush=True)
         half = N_ORACLE_W12 // 2
         oracle_cols = torch.cat([torch.arange(half), torch.arange(N_FULL - half, N_FULL)]).to(dev)
-        want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states[:, :, oracle_cols], 2), 2,
-                      what="phase 11 bls12_381")
-        held_oracle(canonical_host(inst, digests[:, :, oracle_cols], 1), want, "BLS12-381 2^20 Jive", "jive_w12")
+        want = oracle_jive(inst, states[:, :, oracle_cols], 2, what="phase 11 bls12_381")
+        held_oracle(canonical_host(inst, digests[:, :, oracle_cols]), want, "BLS12-381 2^20 Jive", "jive_w12")
         print(f"  {N_ORACLE_W12} lanes ({half} at each end) held against the native oracle "
               f"({oracle_s['phase 11 bls12_381']:.2f} s): identical", flush=True)
 
@@ -1071,9 +1066,8 @@ def main() -> int:
         if got != [golden.jive_compress_k(inst, s, 2) for s in ins]:
             fail("BLS12-377 2^20 Jive: sampled lanes differ from the golden model")
         print(f"  {N_GOLDEN_JIVE} sampled lanes held against the golden model: identical", flush=True)
-        want = oracle(native.jive_batch_canonical, inst, canonical_host(inst, states[:, :, oracle_cols], 2), 2,
-                      what="phase 11 bls12_377")
-        held_oracle(canonical_host(inst, out[:, :, oracle_cols], 1), want, "BLS12-377 2^20 Jive", "jive_w12")
+        want = oracle_jive(inst, states[:, :, oracle_cols], 2, what="phase 11 bls12_377")
+        held_oracle(canonical_host(inst, out[:, :, oracle_cols]), want, "BLS12-377 2^20 Jive", "jive_w12")
         print(f"  {N_ORACLE_W12} lanes ({half} at each end) held against the native oracle "
               f"({oracle_s['phase 11 bls12_377']:.2f} s): identical", flush=True)
         del states, out
@@ -1402,6 +1396,165 @@ def main() -> int:
               f"{device_us / 1e3:.3f} ms (profiler); its canonical digests pass check_limbs", flush=True)
         del states, untraced, traced, canon, fleaves
 
+    # 17 --------------------------------------------------------------------
+    if run(17):
+        phase("17 the bench, the matrix, the verifier, the entry and the demo, each a process of its own")
+        from anemoi_tpu_torch import graft_entry
+        from anemoi_tpu_torch.bench import _ROW, HEADLINE
+        from anemoi_tpu_torch.tools.verify_cuda import kernel_launches
+
+        t17 = time.perf_counter()
+        since = lambda: f"{time.perf_counter() - t17:.1f} s into the phase"
+        slice5 = {"bench": {}}  # the launches the bench and the matrix report, by kernel
+
+        def add_launches(words: int, launches: dict) -> None:
+            for k, v in kernel_launches(words, launches).items():
+                slice5["bench"][k] = slice5["bench"].get(k, 0) + v
+
+        # the default bench, alone on the card and the host (its dry run takes the host's cores)
+        lines = module_result(run_module("anemoi_tpu_torch.bench"), "the bench", timeout=900)
+        docs = [json.loads(line) for line in lines if line.startswith("{")]
+        head, doc = docs[0], docs[-1]
+        if set(head) != {"metric", "value", "unit", "vs_baseline"} or head["metric"] != HEADLINE or \
+                {k: doc.get(k) for k in head} != head:
+            fail(f"the bench's first line {head} is not the headline of its last")
+        configs = {c["metric"]: c for c in doc["configs"]}
+        if [m for m in BENCH_CONFIGS if m not in configs] or len(configs) != len(BENCH_CONFIGS):
+            fail(f"the bench reported {sorted(configs)}, not the {len(BENCH_CONFIGS)} configs of bench.py:620-656")
+        for c in [doc, *configs.values()]:
+            if not (c["value"] > 0 and c.get("parity") == "ok" and c.get("parity_lanes", 0) > 0):
+                fail(f"the bench's {c['metric']}: value {c['value']}, parity {c.get('parity')}")
+        phase5_rate = N_FULL / (jive_ms / 1e3)
+        if abs(head["value"] / phase5_rate - 1) > HEADLINE_TOLERANCE:
+            fail(f"the bench's headline {head['value']} hashes/s is not within {HEADLINE_TOLERANCE:.0%} of phase 5's "
+                 f"{phase5_rate:.1f}: the bench times something other than the kernel")
+        dry = configs["multichip_dryrun_collective_bytes_per_device"]
+        if dry["value"] != dry["n_devices"] * 20 * 4 or dry["collective_counts"] != {"all-gather": 1}:
+            fail(f"the dry run's collectives: {dry}")
+        print(f"  the bench (python3 -m anemoi_tpu_torch.bench, {doc['device']}): headline {head['value']} hashes/s "
+              f"({doc['ms']:.3f} ms a call, the median of its host-clock reps; vs_baseline {head['vs_baseline']}), "
+              f"phase 5's CUDA-event rate {phase5_rate:.1f} ({head['value'] / phase5_rate:.4f}x); "
+              f"{doc['parity_lanes']} lanes held; launches {doc['launches']}", flush=True)
+        add_launches(doc["words"], doc["launches"])
+        for c in configs.values():
+            if "launches" in c:
+                add_launches(c["words"], c["launches"])
+            extra = {k: c[k] for k in ("vs_reference_core", "mb_per_sec", "ms", "n", "parity_lanes", "launches",
+                                       "n_devices", "n_leaves", "t1_sec", "tN_sec") if k in c}
+            print(f"    {c['metric']}: {c['value']} {c['unit']} {json.dumps(extra)}", flush=True)
+        tree = configs["vesta_anemoi_4_3_merkle_2p24_arity4"]
+        inst = get_instance("vesta", "anemoi_4_3")
+        L = inst.field.n_limbs
+        # (4^12 - 1) / 3 Jive-4 nodes, one permutation each; the leaves read once, the root written once
+        tree_bound = bound(inst, (TREE_LEAVES - 1) // 3, (TREE_LEAVES + 1) * L * 4)
+        slice5.update(tree_ms=tree["ms"], tree_bound=tree_bound, tree_launches=tree["launches"]["jive"])
+        print(f"  BASELINE config 4, the arity-4 Vesta 4_3 tree over {TREE_LEAVES} leaves: {tree['ms']:.3f} ms "
+              f"({smi}; the median of 2 reps, host clock, synchronized), {tree['launches']['jive']} Jive launches "
+              f"(a 16-leaf warm-up and 2 x 12 levels), {tree['parity_lanes']} nodes held against the golden model "
+              f"({since()})", flush=True)
+        show_bound(f"the arity-4 tree over {TREE_LEAVES} leaves, {(TREE_LEAVES - 1) // 3} permutations", tree_bound,
+                   tree["ms"])
+        if tree["launches"]["jive"] != 2 + 2 * 12:
+            fail(f"the 2^24-leaf tree took {tree['launches']['jive']} Jive launches, not 2 + 2 x 12")
+
+        # the tree's first level again, in this process from the bench's leaves (seed 0): Jive-4 over 2^22 states,
+        # N_PLAIN lanes at both ends against the plain version and N_ORACLE_FULL against the native oracle
+        leaves = torch.from_numpy(random_canonical(inst.field, (TREE_LEAVES,), np.random.default_rng(0))).to(dev)
+        x = level_states(leaves, 4)
+        del leaves
+        n4 = x.shape[1]
+        level1 = cuda_backend.jive(inst, 4, x)
+        torch.cuda.synchronize()
+        cols = ends(n4)
+        plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, 4, x[:, cols].contiguous()))
+        held(level1[:, cols], plain, f"the 2^24-leaf tree's first level, {n4} Jive-4 states, both ends", "jive")
+        half = N_ORACLE_FULL // 2
+        cols = torch.cat([torch.arange(half), torch.arange(n4 - half, n4)]).to(dev)
+        want = oracle_jive(inst, x[:, cols], 4, what="phase 17 tree")
+        held_oracle(canonical_host(inst, level1[:, cols]), want, f"the tree's first level, {N_ORACLE_FULL} lanes",
+                    "jive")
+        print(f"  the tree's first level in this process (the bench's leaves): Jive-4 over {n4} states, {N_PLAIN} "
+              f"lanes at both ends held against the plain version ({plain_ms / 1e3:.2f} s), {N_ORACLE_FULL} "
+              f"({half} at each end) against the native oracle ({oracle_s['phase 17 tree']:.2f} s): identical "
+              f"({since()})", flush=True)
+        del x, level1
+
+        # the matrix's shape for all 14 instantiations, in this process: Jive-2 over MATRIX_N states made on the
+        # card, N_ORACLE_MATRIX lanes at both ends against the native oracle
+        half = N_ORACLE_MATRIX // 2
+        cols = torch.cat([torch.arange(half), torch.arange(MATRIX_N - half, MATRIX_N)]).to(dev)
+        for seed, (field, iname) in enumerate((f, i) for f in FIELD_NAMES for i in INSTANCE_NAMES):
+            inst_m = get_instance(field, iname)
+            x = random_on_card(inst_m, inst_m.width, MATRIX_N, args.seed + seed)
+            out = jive_compress_batch_fn(inst_m, 2, device=dev)(x)
+            want = oracle_jive(inst_m, x[:, :, cols], 2, what="phase 17 matrix")
+            held_oracle(canonical_host(inst_m, out[:, :, cols]), want, f"{field}/{iname} Jive over {MATRIX_N}",
+                        "jive" if inst_m.field.kernel_words == 8 else "jive_w12")
+        print(f"  the matrix's 14 instantiations in this process: Jive-2 over {MATRIX_N} states each, "
+              f"{N_ORACLE_MATRIX} lanes ({half} at each end) held against the native oracle "
+              f"({oracle_s['phase 17 matrix']:.2f} s): identical ({since()})", flush=True)
+        del x, out
+
+        # the CPU's work beside the card's: the gloo demo, the dry run and the entry's plain version
+        demo_gloo = run_module("anemoi_tpu_torch.tools.multihost_demo", "--procs", "2", "--leaves", str(DEMO_LEAVES),
+                               "--device", "cpu")
+        try:
+            with ThreadPoolExecutor(2) as pool, tempfile.TemporaryDirectory() as tmp:
+                dryrun = pool.submit(graft_entry.dryrun_multichip, 2)
+                fn_cpu, (example_cpu,) = graft_entry.entry(device="cpu")
+                entry_cpu = pool.submit(fn_cpu, example_cpu)
+
+                matrix_path = Path(tmp) / "BENCHMARKS_TORCH.md"
+                lines = module_result(run_module("anemoi_tpu_torch.bench", "--matrix", "--n", str(MATRIX_N), "--out",
+                                                 str(matrix_path)), "the matrix", timeout=900)
+                rows = _ROW.findall(matrix_path.read_text())
+                if len(rows) != 14 or any(parity != "4 lanes exact" for *_, parity in rows):
+                    fail(f"the matrix: {len(rows)} rows, {[r[-1] for r in rows]}")
+                for r in json.loads(lines[-1])["matrix"]:
+                    add_launches(r["words"], r["launches"])
+                print(f"  the matrix (--matrix --n {MATRIX_N}): 14 rows, each with 4 lanes held ({since()}):",
+                      flush=True)
+                for f, i, rate, vs, parity in rows:
+                    print(f"    | {f} | {i} | {rate} | {vs} | {parity} |", flush=True)
+
+                lines = module_result(run_module("anemoi_tpu_torch.tools.verify_cuda", "--fields", "all"),
+                                      "the verifier", timeout=900)
+                if not lines[-1].endswith("ALL PASS") or any(line.startswith("FAIL") for line in lines):
+                    fail("the verifier:\n" + "\n".join(lines))
+                slice5["verify"] = json.loads(lines[-2][len("launches: "):])
+                passed = sum(line.startswith("PASS") for line in lines)
+                print(f"  the verifier (tools.verify_cuda --fields all): {passed} PASS lines, {lines[-1]}; launches "
+                      f"{slice5['verify']} ({since()})", flush=True)
+                for line in lines[:-2]:
+                    print(f"    {line}", flush=True)
+
+                lines = module_result(run_module("anemoi_tpu_torch.tools.multihost_demo", "--procs", "1", "--leaves",
+                                                 str(DEMO_LEAVES), "--device", "cuda"), "the NCCL demo")
+                if lines[-1] != "multihost demo: OK":
+                    fail(f"the NCCL demo: {lines}")
+                lines = module_result(demo_gloo, "the gloo demo", timeout=900)
+                if lines[-1] != "multihost demo: OK":
+                    fail(f"the gloo demo: {lines}")
+                print(f"  the demo (tools.multihost_demo, {DEMO_LEAVES} leaves): 2 gloo workers OK, 1 NCCL rank OK "
+                      f"({since()})", flush=True)
+
+                fn, (example,) = graft_entry.entry()
+                torch.cuda.synchronize()
+                cuda_backend.jive.launches = 0
+                out = fn(example)
+                torch.cuda.synchronize()
+                slice5["entry"] = cuda_backend.jive.launches
+                if not torch.equal(example.cpu(), example_cpu) or slice5["entry"] != 1:
+                    fail(f"the entry: examples differ or {slice5['entry']} launches")
+                held(out.cpu(), entry_cpu.result(), "the entry on the card against its function on the CPU", "jive")
+                dryrun.result()
+        finally:
+            demo_gloo.kill()
+            demo_gloo.wait()
+        print(f"  the entry: graft_entry.entry() on the card, 1 Jive launch, bit-identical to its function on the CPU "
+              f"on all {example.shape[-1]} lanes; dryrun_multichip(2) on 2 gloo ranks ok ({since()})", flush=True)
+        del out, example
+
     # 15 --------------------------------------------------------------------
     if run(15):
         phase("15 kernels")
@@ -1446,17 +1599,22 @@ def main() -> int:
                   oracle_lanes=N_ORACLE_FULL, oracle_root_leaves=ORACLE_TREE,
                   cli_merkle_launches=slice4["cli_merkle"]["jive"], cli_merkle_wall_s=slice4["cli_merkle"]["wall_s"],
                   forest_launches=slice4["forest"]["jive"], trace_launches=slice4["trace"]["jive"],
-                  build_s=lib.build_seconds),
+                  bench_launches=slice5["bench"]["jive"], verify_launches=slice5["verify"]["jive"],
+                  entry_launches=slice5["entry"], tree_2p24_arity4_ms=slice5["tree_ms"],
+                  tree_2p24_arity4_bound_ms=slice5["tree_bound"]["bound_ms"],
+                  tree_2p24_arity4_launches=slice5["tree_launches"], build_s=lib.build_seconds),
             entry("permutation", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
                   perm_group_launches, perm_ms, plain_times[("permutation", "anemoi_4_3")], perm_bound, words=8,
                   kernel="permute_group_kernel", instance="vesta/anemoi_4_3", lanes=N_MSGS,
                   plain_lanes=plain_lanes[8], crossover=crossover[8],
                   sweep={n: {"four_lane_ms": t[True], "one_thread_ms": t[False]} for n, t in sweep.items()},
-                  batched_sponge_ms=stream_ms, build_s=sponge_lib.build_seconds),
+                  batched_sponge_ms=stream_ms, verify_launches=slice5["verify"]["permutation"],
+                  build_s=sponge_lib.build_seconds),
             entry("permutation_thread", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
                   perm_thread_launches, perm_thread_ms, plain_times[("permutation", "anemoi_4_3")], perm_thread_bound,
                   words=8, kernel="permute_kernel", instance="vesta/anemoi_4_3", lanes=N_MSGS_FILL,
-                  plain_lanes=plain_lanes[8], crossover=crossover[8], build_s=sponge_lib.build_seconds),
+                  plain_lanes=plain_lanes[8], crossover=crossover[8],
+                  verify_launches=slice5["verify"]["permutation_thread"], build_s=sponge_lib.build_seconds),
             entry("sponge", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
                   sponge_launches, sponge_ms["anemoi_4_3"], plain_times[("sponge", "anemoi_4_3", 4)],
                   sponge_bound["anemoi_4_3"], words=8, instance="vesta/anemoi_4_3", messages=N_MSGS,
@@ -1466,28 +1624,33 @@ def main() -> int:
                   bound_ms_65536=fill_bound["bound_ms"], e2e_ms=e2e_ms, oracle_messages=N_CHECK,
                   cli_hash_launches=slice4["cli_hash vesta/anemoi_2_1"]["sponge"],
                   async_launches=slice4["async"]["sponge"], async_ms=slice4["async"]["ms"],
-                  async_hash_bytes_ms=slice4["async"]["hash_bytes_ms"], build_s=sponge_lib.build_seconds),
+                  async_hash_bytes_ms=slice4["async"]["hash_bytes_ms"], bench_launches=slice5["bench"]["sponge"],
+                  verify_launches=slice5["verify"]["sponge"], build_s=sponge_lib.build_seconds),
             entry("jive_w12", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive12_launches,
                   jive12_ms, jive12_plain_ms, jive12_bound, words=12, instance="bls12_381/anemoi_2_1", lanes=N_FULL,
                   plain_lanes=N_SAMPLE, oracle_lanes=N_ORACLE_W12, root_ms=root12_ms, ms_bls12_377=jive377_ms,
-                  bound_ms_bls12_377=jive377_bound["bound_ms"], build_s=lib12.build_seconds),
+                  bound_ms_bls12_377=jive377_bound["bound_ms"], bench_launches=slice5["bench"]["jive_w12"],
+                  verify_launches=slice5["verify"]["jive_w12"], build_s=lib12.build_seconds),
             entry("permutation_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
                   perm12_group_launches, perm12_ms, plain_times[("permutation_w12", "anemoi_4_3")], perm12_bound,
                   words=12, kernel="permute_group_kernel", instance="bls12_381/anemoi_4_3", lanes=N_MSGS,
                   plain_instance="bls12_377/anemoi_4_3", plain_lanes=plain_lanes[12], crossover=crossover[12],
                   cli_hash_launches=slice4["cli_hash bls12_381/anemoi_4_3"]["permutation"],
                   sweep={n: {"four_lane_ms": t[True], "one_thread_ms": t[False]} for n, t in sweep12.items()},
-                  batched_sponge_ms=stream12_ms, build_s=sponge_lib12.build_seconds),
+                  batched_sponge_ms=stream12_ms, verify_launches=slice5["verify"]["permutation_w12"],
+                  build_s=sponge_lib12.build_seconds),
             entry("permutation_thread_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:430",
                   perm12_thread_launches, perm12_thread_ms, plain_times[("permutation_w12", "anemoi_4_3")],
                   perm12_thread_bound, words=12, kernel="permute_kernel", instance="bls12_381/anemoi_4_3",
                   lanes=N_MSGS_FILL, plain_instance="bls12_377/anemoi_4_3", plain_lanes=plain_lanes[12],
-                  crossover=crossover[12], build_s=sponge_lib12.build_seconds),
+                  crossover=crossover[12], verify_launches=slice5["verify"]["permutation_thread_w12"],
+                  build_s=sponge_lib12.build_seconds),
             entry("sponge_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
                   sponge12_launches, sponge12_ms, plain_times[("sponge_w12", "anemoi_4_3", 4)], sponge12_bound,
                   words=12, instance="bls12_381/anemoi_4_3", messages=N_MSGS, elements=E, plain_messages=N_PLAIN,
                   plain_elements=4, e2e_ms=e2e12_ms, pack_ms=pack12_ms,
                   cli_hash_launches=slice4["cli_hash bls12_381/anemoi_4_3"]["sponge"],
+                  bench_launches=slice5["bench"]["sponge_w12"], verify_launches=slice5["verify"]["sponge_w12"],
                   build_s=sponge_lib12.build_seconds),
             entry("sqr_chain", "anemoi_tpu_torch/csrc/microbench.cu", "tools/mxu_prototype.py:110",
                   mb_launches["sqr_chain"], chain_bls["ms2"], chain_plain_ms["bls12_381"], ops(chain_bound_ms),

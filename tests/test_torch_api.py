@@ -146,7 +146,7 @@ def test_import_leaves_out_jax():
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "anemoi_tpu")]
         assert not bad, bad
         new = ["cli", "dist.forest", "dist.mesh", "ff.native", "modes.async_pipeline", "utils.debug",
-               "utils.profiling"]
+               "utils.profiling", "bench", "graft_entry", "dist.ranks", "tools.verify_cuda", "tools.multihost_demo"]
         assert all("anemoi_tpu_torch." + m in sys.modules for m in new)
         print("ok")
         """

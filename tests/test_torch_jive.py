@@ -3,7 +3,9 @@ entry points.
 
 Tolerance: exact (integer arithmetic, canonical int32 arrays).  Inputs are
 canonical states from numpy seeds, at the batch shape tests/test_jnp_backend.py
-compiles (4 lanes), so the JAX side's compiled programs are shared.  The
+compiles (4 lanes), so the JAX side's compiled programs are shared; the
+Vesta 2_1 program also takes the first 4 lanes of ``graft_entry.entry()``'s
+example.  The
 4-to-1 case is held against the JAX package's golden model: compiling its
 jnp program for a new shape takes minutes on the CPU.
 """
@@ -16,6 +18,7 @@ import torch
 from anemoi_tpu.ff import golden
 from anemoi_tpu.fields import params as jparams
 from anemoi_tpu.modes import batched as jbm
+from anemoi_tpu_torch import graft_entry
 from anemoi_tpu_torch.ff import cuda_backend
 from anemoi_tpu_torch.fields.params import get_instance
 from anemoi_tpu_torch.merkle.tree import MerkleTree
@@ -34,10 +37,17 @@ def test_plain_jive_matches_jax(iname):
     states[0] = [0] * inst.width
     states[1] = [inst.field.p - 1] * inst.width
     x = encode_states(inst, states, device="cpu")
-    want = jax.jit(jbm.jive_compress_batch_fn(jparams.get_instance("vesta", iname), 2))(x.numpy())
+    jax_fn = jax.jit(jbm.jive_compress_batch_fn(jparams.get_instance("vesta", iname), 2))
+    want = jax_fn(x.numpy())
     got = jive_compress_batch_fn(inst, 2, device="cpu")(x)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if iname == "anemoi_2_1":
+        # the port's entry point on the first 4 lanes of its canonical example,
+        # through the program compiled above: the same shape, no new compile
+        fn, (example,) = graft_entry.entry(device="cpu")
+        lanes = example[:, :, :4].contiguous()
+        np.testing.assert_array_equal(fn(lanes).numpy(), np.asarray(jax_fn(lanes.numpy())))
 
 
 def test_plain_jive_matches_jax_bls12_381():

@@ -49,6 +49,28 @@ def test_arity_4_root_matches_golden():
     assert decode_ints(got, inst.field) == level
 
 
+def test_check_levels_holds_nodes_against_golden():
+    """``check_levels`` on a 32-leaf tree's levels built by the golden
+    model: 2 nodes at each end of every level, 15 in all; a flipped limb
+    in a checked node raises, one in a node that is neither checked nor
+    the child of a checked node does not."""
+    from anemoi_tpu_torch.ff.golden import ParityError
+    from anemoi_tpu_torch.merkle.tree import check_levels
+
+    inst = get_instance("vesta", "anemoi_2_1")
+    level = _leaves(32, 5)
+    levels = [encode_ints(level, inst.field)]
+    while len(level) > 1:
+        level = [golden.jive_compress(inst, level[i : i + 2])[0] for i in range(0, len(level), 2)]
+        levels.append(encode_ints(level, inst.field))
+    assert check_levels(inst, levels) == 4 + 4 + 4 + 2 + 1
+    levels[1][0, 5] ^= 1  # node 5 of 16, a child of node 2 of 8: neither is checked
+    assert check_levels(inst, levels) == 15
+    levels[2][0, 1] ^= 1  # node 1 of 8
+    with pytest.raises(ParityError, match="node 1 of level 2"):
+        check_levels(inst, levels)
+
+
 def test_level_states_gathers_children():
     digests = np.arange(3 * 8, dtype=np.int32).reshape(3, 8)  # L = 3, 8 digests
     import torch

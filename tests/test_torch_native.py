@@ -5,7 +5,9 @@ of all 14 instances on ``random_canonical`` states (a few lanes each)
 against ``anemoi_tpu.ff.native``'s functions of the same names and the
 golden model; the whole-array repacking between 13-bit limbs and 64-bit
 words against the JAX package's row-by-row repacker at the values 0,
-p - 1 and 2^bits - 1, and back.
+p - 1 and 2^bits - 1, and back.  What the port's checks build on the
+oracle (``threaded``, ``canonical_host`` / ``montgomery``,
+``host_sponge``, ``tree_levels``) against the golden model.
 """
 
 import numpy as np
@@ -65,3 +67,55 @@ def test_oracle_rejects_bad_input():
         native.limbs_to_words(np.full((1, 20), 1 << 13, dtype=np.int32), inst.field)  # a limb of 14 bits
     with pytest.raises(ValueError):
         native.jive_batch_canonical(inst, np.zeros((1, 2, 20), dtype=np.int32), 4)
+
+
+@pytest.mark.parametrize("field", ["vesta", "bls12_381"])
+def test_canonical_host_and_montgomery_invert(field):
+    """``canonical_host`` against the golden ints of Montgomery limbs, at
+    both layouts it takes; ``montgomery`` back to the same limbs."""
+    from anemoi_tpu_torch.ff.limb_ops import decode_ints
+    from anemoi_tpu_torch.modes.batched import encode_states
+
+    inst = params.get_instance(field, "anemoi_4_3")
+    rng = np.random.default_rng(3)
+    states = [[int(rng.integers(0, 2**62)) * int(rng.integers(1, 2**62)) % inst.field.p for _ in range(4)]
+              for _ in range(LANES)]
+    states[0] = [0, 1, inst.field.p - 1, 2]
+    x = encode_states(inst, states, device="cpu")  # [4, L, n] Montgomery
+    canon = native.canonical_host(inst, x)
+    assert canon.shape == (LANES, 4, inst.field.n_limbs) and _ints(canon) == states
+    np.testing.assert_array_equal(native.canonical_host(inst, x.reshape(4 * inst.field.n_limbs, LANES)), canon)
+    back = native.montgomery(inst, canon)
+    assert back.dtype == x.dtype and back.shape == x.shape and bool((back == x).all())
+    assert decode_ints(back[1], inst.field) == [s[1] for s in states]
+
+
+@pytest.mark.parametrize("field,iname,E", [("vesta", "anemoi_4_3", 7), ("vesta", "anemoi_2_1", 2),
+                                           ("bls12_377", "anemoi_4_3", 3), ("jubjub", "anemoi_2_1", 0)])
+def test_host_sponge_matches_golden(field, iname, E):
+    """The host sponge (the oracle's permutation, Python-int rate adds and
+    sigma) against ``golden.hash_field``: a tail, whole rate blocks, and
+    the empty message."""
+    inst = params.get_instance(field, iname)
+    messages = np.ascontiguousarray(random_canonical(inst.field, (E, 3), np.random.default_rng(E)).transpose(2, 1, 0))
+    got = native.host_sponge(inst, messages)
+    assert got.shape == (3, inst.digest_size, inst.field.n_limbs)
+    assert _ints(got) == [golden.hash_field(inst, m) for m in _ints(messages)]
+
+
+@pytest.mark.parametrize("iname,n", [("anemoi_2_1", 16), ("anemoi_4_3", 64)])
+def test_tree_levels_and_threaded_match_golden(iname, n):
+    """``tree_levels`` level by level against the golden model's Jive, and
+    ``threaded`` against one oracle call."""
+    inst = params.get_instance("vesta", iname)
+    k = inst.width // inst.digest_size
+    leaves = np.ascontiguousarray(random_canonical(inst.field, (n,), np.random.default_rng(n)).T)
+    levels = native.tree_levels(inst, leaves)
+    want = [int_from_limbs(v) for v in leaves]
+    assert len(levels) == {2: 4, 4: 3}[inst.width]
+    for level in levels:
+        want = [golden.jive_compress_k(inst, want[i:i + inst.width], k)[0] for i in range(0, len(want), inst.width)]
+        assert [int_from_limbs(v) for v in level] == want
+    states = leaves.reshape(-1, inst.width, inst.field.n_limbs)
+    np.testing.assert_array_equal(native.threaded(native.jive_batch_canonical, inst, states, k),
+                                  native.jive_batch_canonical(inst, states, k))
