@@ -38,8 +38,13 @@ Where it differs from ``bench.py``, on purpose:
     sends through the collectives and the raw times of one forest call on
     one process and on the ranks, and derives no scaling figure.
   * ``--block``, ``--impl`` and ``--ladder`` are accepted (the last two
-    validated as the JAX package validates them) and change nothing: the
-    kernels choose their own blocking and arithmetic.  No wall-clock
+    validated as the JAX package validates them).  ``--impl`` with a name
+    that starts with "mxu" (the JAX kernel's product on its matrix unit)
+    runs every Jive config (the headline, the Jive configs, the roots and
+    the arity-4 tree, the matrix) on the tensor-core Jive kernel
+    (``csrc/jive_mma.cu``), counted as "jive_mma" in each config's
+    launches; the other names, ``--block`` and ``--ladder`` change nothing:
+    the kernels choose their own blocking and ladder.  No wall-clock
     budget: every config runs, and any failure ends the program.
 """
 
@@ -152,11 +157,12 @@ def _measure(run, warm, reps: int, device: torch.device, check, n: int, words: i
             "parity": "ok", "parity_lanes": lanes, "launches": {k: after[k] - before[k] for k in after}}
 
 
-def bench_jive(field="vesta", iname="anemoi_2_1", n=1 << 20, reps=3, device=None, profile_dir=None) -> dict:
+def bench_jive(field="vesta", iname="anemoi_2_1", n=1 << 20, reps=3, device=None, profile_dir=None,
+               mul_impl=None) -> dict:
     """Jive 2-to-1 over n canonical states (``jive_compress_batch_fn``, one
-    launch a call), its first PARITY lanes checked against the golden
-    model.  Returns ``_measure``'s run: "value" hashes/s, "ms",
-    "parity_lanes", "launches", "words"."""
+    launch a call; ``mul_impl`` as its), its first PARITY lanes checked
+    against the golden model.  Returns ``_measure``'s run: "value"
+    hashes/s, "ms", "parity_lanes", "launches", "words"."""
     device = cuda_backend.resolve_device(device)
     if device.type == "cpu":
         n = min(n, CPU_MAX["jive"])
@@ -169,7 +175,7 @@ def bench_jive(field="vesta", iname="anemoi_2_1", n=1 << 20, reps=3, device=None
     check_states = [_random_ints(rng, fp.p, W) for _ in range(PARITY)]
     states[:, :, :PARITY] = encode_states(inst, check_states, device="cpu")
     states = states.to(device)
-    fn = jive_compress_batch_fn(inst, 2, device=device)
+    fn = jive_compress_batch_fn(inst, 2, device=device, mul_impl=mul_impl)
     want = [golden.jive_compress(inst, s) for s in check_states]
 
     def check(out):
@@ -212,15 +218,16 @@ def bench_sponge_10kb(field="vesta", iname="anemoi_4_3", n_msgs=4096, reps=2, de
     return {**run, "elements": E}
 
 
-def bench_merkle(field="vesta", iname="anemoi_2_1", n_leaves=1 << 20, reps=2, device=None) -> dict:
+def bench_merkle(field="vesta", iname="anemoi_2_1", n_leaves=1 << 20, reps=2, device=None, mul_impl=None) -> dict:
     """``MerkleTree.root`` over n_leaves canonical leaves with
-    ``return_levels`` (one Jive launch a level), PARITY nodes of every
-    level checked by ``merkle.tree.check_levels``.  "value" is leaves/s."""
+    ``return_levels`` (one Jive launch a level; ``mul_impl`` as the tree's),
+    PARITY nodes of every level checked by ``merkle.tree.check_levels``.
+    "value" is leaves/s."""
     device = cuda_backend.resolve_device(device)
     if device.type == "cpu":
         n_leaves = min(n_leaves, CPU_MAX["merkle"])
     inst = get_instance(field, iname)
-    tree = MerkleTree(inst, device=device)
+    tree = MerkleTree(inst, device=device, mul_impl=mul_impl)
     tree.num_levels(n_leaves)  # raises unless a power of the arity
     leaves = torch.from_numpy(random_canonical(inst.field, (n_leaves,), np.random.default_rng(0))).to(device)
     small = leaves[:, :inst.width**2].contiguous()
@@ -300,30 +307,32 @@ def headline_doc(run: dict) -> dict:
             "vs_baseline": round(run["value"] / REFERENCE_RATE, 2)}
 
 
-def secondary_configs(n: int, device) -> list:
+def secondary_configs(n: int, device, mul_impl=None) -> list:
     """The default run's secondary configs (bench.py:620-656), in its
-    order: (metric, unit, reference key, extra-keys function, run)."""
+    order: (metric, unit, reference key, extra-keys function, run); the
+    Jive configs and the roots with ``mul_impl``."""
     sponge_mb = lambda r: {"mb_per_sec": round(r["value"] * MSG_BYTES / 1e6, 1)}
     none = lambda r: {}
     return [
         ("vesta_anemoi_4_3_jive_2to1", "hashes/s", ("vesta", "anemoi_4_3", "jive"), none,
-         lambda: bench_jive("vesta", "anemoi_4_3", n=n // 4, reps=2, device=device)),
+         lambda: bench_jive("vesta", "anemoi_4_3", n=n // 4, reps=2, device=device, mul_impl=mul_impl)),
         ("bls12_377_anemoi_2_1_jive_2to1", "hashes/s", ("bls12_377", "anemoi_2_1", "jive"), none,
-         lambda: bench_jive("bls12_377", "anemoi_2_1", n=n // 4, reps=2, device=device)),
+         lambda: bench_jive("bls12_377", "anemoi_2_1", n=n // 4, reps=2, device=device, mul_impl=mul_impl)),
         ("vesta_anemoi_4_3_sponge_10kb", "msgs/s", ("vesta", "anemoi_4_3", "sponge10kb"), sponge_mb,
          lambda: bench_sponge_10kb(device=device)),
         ("bls12_377_anemoi_4_3_sponge_10kb", "msgs/s", ("bls12_377", "anemoi_4_3", "sponge10kb"), sponge_mb,
          lambda: bench_sponge_10kb("bls12_377", "anemoi_4_3", n_msgs=1024, device=device)),
-        ("vesta_anemoi_2_1_merkle_2p20_arity2", "leaves/s", None, none, lambda: bench_merkle(device=device)),
+        ("vesta_anemoi_2_1_merkle_2p20_arity2", "leaves/s", None, none,
+         lambda: bench_merkle(device=device, mul_impl=mul_impl)),
         ("vesta_anemoi_4_3_merkle_2p24_arity4", "leaves/s", None, none,
-         lambda: bench_merkle("vesta", "anemoi_4_3", n_leaves=1 << 24, reps=2, device=device)),
+         lambda: bench_merkle("vesta", "anemoi_4_3", n_leaves=1 << 24, reps=2, device=device, mul_impl=mul_impl)),
     ]
 
 
-def all_configs(n: int, device) -> list:
+def all_configs(n: int, device, mul_impl=None) -> list:
     """``--all``'s configs after the headline and the dry run (bench.py:468-503)."""
     configs = [(f"{f}_{i}_jive_2to1", "hashes/s", (f, i, "jive"), lambda r: {},
-                lambda f=f, i=i: bench_jive(f, i, n=n // 4, reps=2, device=device))
+                lambda f=f, i=i: bench_jive(f, i, n=n // 4, reps=2, device=device, mul_impl=mul_impl))
                for f, i in [("vesta", "anemoi_4_3"), ("bls12_381", "anemoi_2_1"), ("bls12_377", "anemoi_2_1"),
                             ("bls12_377", "anemoi_4_3")]]
     configs += [(f"{f}_{i}_sponge_10kb", "msgs/s", (f, i, "sponge10kb"),
@@ -332,7 +341,7 @@ def all_configs(n: int, device) -> list:
                                                     device=device))
                 for f, i in [("vesta", "anemoi_4_3"), ("vesta", "anemoi_2_1"), ("bls12_377", "anemoi_4_3"),
                              ("bls12_377", "anemoi_2_1")]]
-    return configs + secondary_configs(n, device)[4:]  # the two trees
+    return configs + secondary_configs(n, device, mul_impl)[4:]  # the two trees
 
 
 def run_configs(configs: list) -> list:
@@ -344,7 +353,7 @@ def run_configs(configs: list) -> list:
     return entries
 
 
-def bench_matrix(n=1 << 18, reps=2, out_path=MATRIX_OUT, resume=False, device=None) -> list:
+def bench_matrix(n=1 << 18, reps=2, out_path=MATRIX_OUT, resume=False, device=None, mul_impl=None) -> list:
     """Jive rates of all 14 instantiations (bench.py:275-339), each with its
     PARITY lanes checked; writes a markdown table to out_path after every
     row.  With ``resume``, rows already in out_path are kept and only the
@@ -383,7 +392,7 @@ def bench_matrix(n=1 << 18, reps=2, out_path=MATRIX_OUT, resume=False, device=No
             if (field, iname) in done:
                 rows.append((field, iname, *done[(field, iname)], None))
                 continue
-            run = bench_jive(field, iname, n=n, reps=reps, device=device)
+            run = bench_jive(field, iname, n=n, reps=reps, device=device, mul_impl=mul_impl)
             ref = _REF_RATES.get((field, iname, "jive"))  # bench.py:288-289's latencies, as rates
             vs = f"{run['value'] / ref:.1f}x" if ref else "--"
             rows.append((field, iname, run["value"], vs, f"{run['parity_lanes']} lanes exact", run))
@@ -395,15 +404,15 @@ def bench_matrix(n=1 << 18, reps=2, out_path=MATRIX_OUT, resume=False, device=No
     return rows
 
 
-def bench_all(n: int, reps: int, out_path=ALL_OUT, device=None) -> dict:
+def bench_all(n: int, reps: int, out_path=ALL_OUT, device=None, mul_impl=None) -> dict:
     """Every BASELINE config (bench.py:418-526): the headline JSON line
     first, then one document, also written as a table to out_path."""
     device = cuda_backend.resolve_device(device)
-    head = bench_jive(n=n, reps=reps, device=device)
+    head = bench_jive(n=n, reps=reps, device=device, mul_impl=mul_impl)
     print(json.dumps(headline_doc(head)), flush=True)
     configs = [config_entry("vesta_anemoi_2_1_jive_2to1", "hashes/s", head, ("vesta", "anemoi_2_1", "jive")),
                dryrun_entry(bench_multichip_dryrun())]
-    configs += run_configs(all_configs(n, device))
+    configs += run_configs(all_configs(n, device, mul_impl))
     doc = {"device": device_label(device), "headline": headline_doc(head), "configs": configs}
     lines = ["# Full benchmark sweep (generated by `python3 -m anemoi_tpu_torch.bench --all`)", "",
              f"Device: {doc['device']}.  Reference column: upstream single-core",
@@ -430,7 +439,9 @@ def main(argv=None) -> int:
                     help="with --matrix: keep rows already in the doc and measure only the missing configs")
     ap.add_argument("--out", default=None, help="the table --matrix or --all writes")
     ap.add_argument("--impl", default=None,
-                    help="validated and ignored: bench.py's mul impl (cios | cios2 | cios<k> | parallel | mxu...)")
+                    help="bench.py's mul impl (cios | cios2 | cios<k> | parallel | mxu...): mxu, mxuf, mxus, mxu2 or "
+                         "mxu3 runs the Jive configs on the tensor-core Jive kernel; the others are validated and "
+                         "change nothing")
     ap.add_argument("--ladder", default=None,
                     help="validated and ignored: bench.py's exp ladder (fixed4 | sw4 | chain...)")
     ap.add_argument("--headline-only", action="store_true",
@@ -451,25 +462,26 @@ def main(argv=None) -> int:
 
     if args.matrix:
         rows = bench_matrix(n=args.n or 1 << 18, reps=args.reps, out_path=args.out or MATRIX_OUT,
-                            resume=args.resume, device=device)
+                            resume=args.resume, device=device, mul_impl=args.impl)
         print(json.dumps({"device": device_label(device), "matrix": [
             {"field": f, "instance": i, "value": rate, "vs_reference_core": vs, "parity": parity,
              **({k: run[k] for k in ("ms", "n", "words", "parity_lanes", "launches")} if run else {"kept": True})}
             for f, i, rate, vs, parity, run in rows]}), flush=True)
         return 0
     if args.all:
-        bench_all(args.n or 1 << 20, args.reps, args.out or ALL_OUT, device)
+        bench_all(args.n or 1 << 20, args.reps, args.out or ALL_OUT, device, args.impl)
         return 0
 
     n = args.n or 1 << 20
-    head = bench_jive(n=n, reps=args.reps, device=device, profile_dir=args.profile)
+    head = bench_jive(n=n, reps=args.reps, device=device, profile_dir=args.profile, mul_impl=args.impl)
     doc = headline_doc(head)
     # the headline first and flushed: a run cut short still leaves it on stdout
     print(json.dumps(doc), flush=True)
     if not args.headline_only:
         doc.update(device=device_label(device), ms=head["ms"], n=n, words=head["words"], parity=head["parity"],
                    parity_lanes=head["parity_lanes"], launches=head["launches"])
-        doc["configs"] = [dryrun_entry(bench_multichip_dryrun())] + run_configs(secondary_configs(n, device))
+        doc["configs"] = [dryrun_entry(bench_multichip_dryrun())] + run_configs(secondary_configs(n, device,
+                                                                                                 args.impl))
         print(json.dumps(doc), flush=True)
     return 0
 

@@ -3,7 +3,8 @@
 The second bound of ``__launch_bounds__`` caps a kernel's registers and
 changes how ptxas schedules it: ``JIVE2_MIN_BLOCKS`` and
 ``JIVE4_MIN_BLOCKS`` in ``csrc/jive.cu``, ``PERMUTE_MIN_BLOCKS`` and
-``PERMUTE_GROUP_MIN_BLOCKS`` in ``csrc/sponge.cu``, one value per word
+``PERMUTE_GROUP_MIN_BLOCKS`` in ``csrc/sponge.cu``, ``JIVE_MMA2_MIN_BLOCKS``
+and ``JIVE_MMA4_MIN_BLOCKS`` in ``csrc/jive_mma.cu``, one value per word
 count.  Each is the fastest value without spills of those this sweep
 measures.  For each value, both sources are built at 8 and 12 words with
 each of their constants set to it by ``-D``, 16 builds at once, beside the
@@ -15,11 +16,13 @@ held bit for bit against the shipped library's:
   * ``jive_kernel<2,2>`` over 2^20 states (Vesta 2_1, BLS12-381 2_1) and
     ``jive_kernel<4,2>`` over 2^20 (Vesta 4_3, BLS12-381 4_3);
   * ``permute_group_kernel<4>`` at 4,096 states and ``permute_kernel<4>``
-    at 65,536 (Vesta 4_3, BLS12-381 4_3).
+    at 65,536 (Vesta 4_3, BLS12-381 4_3);
+  * ``jive_mma_kernel<2,2>`` and ``<4,2>`` over 2^20 states, as
+    ``jive_kernel``'s.
 
 Run on the card:
 
-    python3 -m anemoi_tpu_torch.bounds_sweep [--values 1,2,...] [--out FILE.json]
+    python3 -m anemoi_tpu_torch.bounds_sweep [--values 1,2,...] [--sources jive_mma.cu,...] [--out FILE.json]
 
 The fastest value moves with ptxas, so the constants are measured again
 when nvcc changes.
@@ -43,7 +46,8 @@ from .fields.params import get_instance
 from .microbench import event_ms
 
 MACROS = {"jive.cu": ("JIVE2_MIN_BLOCKS", "JIVE4_MIN_BLOCKS"),
-          "sponge.cu": ("PERMUTE_MIN_BLOCKS", "PERMUTE_GROUP_MIN_BLOCKS")}
+          "sponge.cu": ("PERMUTE_MIN_BLOCKS", "PERMUTE_GROUP_MIN_BLOCKS"),
+          "jive_mma.cu": ("JIVE_MMA2_MIN_BLOCKS", "JIVE_MMA4_MIN_BLOCKS")}
 FIELDS = {8: "vesta", 12: "bls12_381"}
 # (source, kernel as ptxas names it, the macro that bounds it, instance, k or the permutation kernel, states)
 KERNELS = (
@@ -51,7 +55,11 @@ KERNELS = (
     ("jive.cu", "jive_kernel<4,2>", "JIVE4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20),
     ("sponge.cu", "permute_group_kernel<4>", "PERMUTE_GROUP_MIN_BLOCKS", "anemoi_4_3", 1, 4096),
     ("sponge.cu", "permute_kernel<4>", "PERMUTE_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16),
+    ("jive_mma.cu", "jive_mma_kernel<2,2>", "JIVE_MMA2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20),
+    ("jive_mma.cu", "jive_mma_kernel<4,2>", "JIVE_MMA4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20),
 )
+LIBRARIES = {"jive.cu": cuda_backend.library, "sponge.cu": cuda_backend.sponge_library,
+             "jive_mma.cu": cuda_backend.mma_library}
 REPS = 3
 
 
@@ -64,7 +72,7 @@ def build(source: str, words: int, value: int | None):
     """`source` at `words` words, as shipped (value None) or with every
     constant set to `value`."""
     flags = () if value is None else defines(source, value)
-    return (cuda_backend.library if source == "jive.cu" else cuda_backend.sponge_library)(words, flags)
+    return LIBRARIES[source](words, flags)
 
 
 def random_states(inst, n: int, seed: int) -> torch.Tensor:
@@ -81,9 +89,13 @@ def run_kernel(lib, source: str, inst, arg: int, x: torch.Tensor) -> torch.Tenso
     """One launch of the named kernel of `lib` on x; not counted by the
     port's wrappers (this is not a path of the port)."""
     consts = cuda_backend.consts_words(inst).ctypes.data
-    if source == "jive.cu":
+    if source in ("jive.cu", "jive_mma.cu"):
         out = torch.empty((x.shape[0] // arg, x.shape[1]), dtype=torch.int32, device=x.device)
-        cuda_backend._launch(lib.cdll, "anemoi_jive", x, out, inst.width, arg, consts)
+        if source == "jive.cu":
+            cuda_backend._launch(lib.cdll, "anemoi_jive", x, out, inst.width, arg, consts)
+        else:
+            cuda_backend._launch(lib.cdll, "anemoi_jive_mma", x, out, inst.width, arg, consts,
+                                 cuda_backend.fragments(inst.field, x.device).data_ptr())
     else:
         out = torch.empty_like(x)
         cuda_backend._launch(lib.cdll, "anemoi_permute", x, out, inst.width, arg, consts,
@@ -96,27 +108,33 @@ def blocks_per_sm(lib, kernel: str) -> int:
     args = [int(a) for a in args.rstrip(">").split(",")]
     if name == "jive_kernel":
         return lib.cdll.anemoi_jive_blocks_per_sm(*args)
+    if name == "jive_mma_kernel":
+        return lib.cdll.anemoi_jive_mma_blocks_per_sm(*args)
     return lib.cdll.anemoi_sponge_blocks_per_sm({"permute_kernel": 0, "permute_group_kernel": 1}[name], *args)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--values", default="1,2,3,4,5,6,7,8", help="the blocks an SM to try")
+    ap.add_argument("--sources", default=",".join(MACROS), help="the sources whose kernels to sweep")
     ap.add_argument("--out", type=Path, help="write the table to this JSON file as well")
     args = ap.parse_args()
+    sources = args.sources.split(",")
+    if not set(sources) <= set(MACROS):
+        ap.error(f"sources are {', '.join(MACROS)}")
     if not torch.cuda.is_available():
         raise SystemExit("bounds_sweep: no CUDA device")
     values = [int(v) for v in args.values.split(",")]
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    jobs = [(s, w, v) for s in MACROS for w in FIELDS for v in (None, *values)]
+    jobs = [(s, w, v) for s in sources for w in FIELDS for v in (None, *values)]
     t = time.perf_counter()
     with ThreadPoolExecutor(min(len(jobs), 16)) as pool:  # one nvcc per build, 16 at once
         libs = dict(zip(jobs, pool.map(lambda j: build(*j), jobs)))
     print(f"{len(jobs)} builds, 16 at once: {time.perf_counter() - t:.1f} s", flush=True)
     rows = []
-    for source, kernel, macro, iname, arg, n in KERNELS:
+    for source, kernel, macro, iname, arg, n in (k for k in KERNELS if k[0] in sources):
         for words, field in FIELDS.items():
             inst = get_instance(field, iname)
             x = random_states(inst, n, seed=words)

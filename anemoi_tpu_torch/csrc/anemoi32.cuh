@@ -5,13 +5,15 @@
 //
 // A state is W field elements in Montgomery form with R' = 2^(32 NW),
 // held whole by one thread (ThreadArith over field32.cuh: the Jive kernel
-// and the one-thread permutation kernel) or word-sliced over a group of
-// four lanes (GroupArith over field32_group.cuh: the sponge kernel and the
-// four-lane permutation kernel); the body is written once over the two.
+// and the one-thread permutation kernel), word-sliced over a group of four
+// lanes (GroupArith over field32_group.cuh: the sponge kernel and the
+// four-lane permutation kernel), or word-sliced so with two states a group
+// and the reduction on the tensor cores (MmaArith over field32_mma.cuh: the
+// tensor-core Jive kernel); the body is written once over the three.
 // Rounds: ARK, MDS (1 or 2 columns), open Flystel; then a final MDS.
 // x^(1/alpha) is a 4-bit sliding window under ThreadArith (Vesta: 253
 // squarings and 63 products, table included; BLS12-381: 379 and 89) and a
-// binary ladder under GroupArith (253 and 124; 380 and 193); the
+// binary ladder under GroupArith and MmaArith (253 and 124; 380 and 193); the
 // reference's addition chains have 293 and 454 operations, and the result
 // is the same canonical value.  Round and exponent loops stay rolled
 // (#pragma unroll 1), which keeps the build to seconds.
@@ -26,6 +28,7 @@
 
 #include "field32.cuh"
 #include "field32_group.cuh"
+#include "field32_mma.cuh"
 
 #define MAX_ROUND_COLUMNS 28  // rounds * columns of the largest instance: 14 x 2 (Vesta and BLS12-381 4_3)
 
@@ -173,6 +176,178 @@ struct GroupArith {
     G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
     G32_MEMBER const Elem& delta() const { return delta_; }
 };
+
+// A warp holds 16 states (field32_mma.cuh, warp policy M), each element
+// word-sliced over a quad as under GroupArith, two states a quad (fragment
+// rows g and g + 8): the Jive kernel of jive_mma.cu.  The products run
+// mma_mont_mul_n: the bilinear half on the group's word-sliced operand
+// scanning, the reduction's two products by constants on the tensor cores;
+// frag holds the constants' fragments (shared memory on the card).  Adds,
+// subtracts and selects run the group code on each half's quads.  LOCKSTEP,
+// so x^(1/alpha) is the binary ladder.
+template <int NW, class M>
+struct MmaArith {
+    using G = typename M::G;
+    static constexpr int S = NW / 4, T = M::T, H = G::H;
+    using Elem = uint32_t[2][T][S];
+    static constexpr bool LOCKSTEP = true;
+    const AnemoiConsts<NW>& c;
+    const uint32_t* frag;
+    uint32_t p[H][S];
+    Elem beta;
+    G32_MEMBER MmaArith(const AnemoiConsts<NW>& consts, const uint32_t* fragments) : c(consts), frag(fragments) {
+        g_slice<NW, G>(p, c.p);
+        splat(beta, c.beta);
+    }
+    // every held lane's slice of the words w[NW], in both halves
+    G32_MEMBER static void splat(Elem r, const uint32_t w[NW]) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < T; q += H) g_slice<NW, G>(r[h] + q, w);
+    }
+    G32_MEMBER void add(Elem r, const Elem a, const Elem b) const {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < T; q += H) g_add<NW, G>(r[h] + q, a[h] + q, b[h] + q, p);
+    }
+    G32_MEMBER void add(Elem r, const Elem a, const uint32_t k[NW]) const {
+        Elem s;
+        splat(s, k);
+        add(r, a, s);
+    }
+    G32_MEMBER void sub(Elem r, const Elem a, const Elem b) const {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < T; q += H) g_sub<NW, G>(r[h] + q, a[h] + q, b[h] + q, p);
+    }
+    G32_MEMBER void copy(Elem r, const Elem a) const {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < T; ++i)
+#pragma unroll
+                for (int j = 0; j < S; ++j) r[h][i][j] = a[h][i][j];
+    }
+    // r = pick ? a : b, word by word (pick is the same in every lane)
+    G32_MEMBER void select(Elem r, bool pick, const Elem a, const Elem b) const {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < T; ++i)
+#pragma unroll
+                for (int j = 0; j < S; ++j) r[h][i][j] = pick ? a[h][i][j] : b[h][i][j];
+    }
+    template <int N>
+    G32_MEMBER void mul_n(Elem* r, const Elem* a, const Elem* b) const { mma_mont_mul_n<NW, M, N>(r, a, b, p, frag); }
+    template <int N>
+    G32_MEMBER void sqr_n(Elem* r, const Elem* a) const { mul_n<N>(r, a, a); }
+    template <int N>
+    G32_MEMBER void mul_g_n(Elem* r, const Elem* a) const {
+        Elem g[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) copy(g[i], beta);
+        mul_n<N>(r, a, g);
+    }
+    G32_MEMBER void mul(Elem r, const Elem a, const Elem b) const {
+        using E = uint32_t(*)[2][T][S];
+        using CE = const uint32_t(*)[2][T][S];
+        mul_n<1>((E)r, (CE)a, (CE)b);  // one element as an array of one (C casts, as in mma_mont_mul_n)
+    }
+    G32_MEMBER void mul_g(Elem r, const Elem a) const { mul(r, a, beta); }
+    G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
+    G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
+    G32_MEMBER const uint32_t* delta() const { return c.delta; }
+};
+
+// The 16 states of the warp whose first is state `base`, under MmaArith:
+// held thread i's state of half h, and whether it is one of the n (limb l
+// of an element at src[l * n + state]).  A state at or past n reads as 0
+// and is not written, so the last warp runs whole.
+template <class M>
+F32_FN bool mma_state(long long base, long long n, int i, int h, long long& state) {
+    state = base + M::lane_id(i) / 4 + 8 * h;
+    return state < n;
+}
+
+// Limbs -> R' form, as f32_from_limbs: every lane of a quad reads all the
+// limbs of its two states, packs the words and keeps its slice; then one
+// product by c_in.
+template <int NW, class M>
+F32_FN void mma_from_limbs(const MmaArith<NW, M>& ar, uint32_t r[2][M::T][NW / 4], const int32_t* src, long long n,
+                           long long base) {
+    using Elem = typename MmaArith<NW, M>::Elem;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < M::T; ++i) {
+            long long st;
+            const bool live = mma_state<M>(base, n, i, h, st);
+            uint32_t w[NW];
+#pragma unroll
+            for (int j = 0; j < NW; ++j) w[j] = 0;
+#pragma unroll
+            for (int l = 0; l < f32_limbs<NW>; ++l) {
+                const uint32_t v = live ? (uint32_t)src[(size_t)l * n + st] & F32_LIMB_MASK : 0u;
+                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+                w[word] |= v << shift;
+                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) w[word + 1] |= v >> (32 - shift);
+            }
+            const int lane = M::lane_id(i) % G32_LANES;
+#pragma unroll
+            for (int j = 0; j < NW / 4; ++j) {
+                uint32_t v = w[j];
+#pragma unroll
+                for (int k = 1; k < G32_LANES; ++k) v = lane == k ? w[k * (NW / 4) + j] : v;
+                r[h][i][j] = v;
+            }
+        }
+    Elem k;
+    ar.splat(k, ar.c.c_in);
+    ar.mul(r, r, k);
+}
+
+// R' form -> canonical limbs at dst[l * n + state], as f32_to_limbs: one
+// product by c_out, the words gathered into every lane of the quad, and
+// lane t writes limbs t, t + 4, ... of each of its live states.
+template <int NW, class M>
+F32_FN void mma_to_limbs(const MmaArith<NW, M>& ar, int32_t* dst, long long n, long long base,
+                         const uint32_t a[2][M::T][NW / 4]) {
+    using G = typename M::G;
+    constexpr int S = NW / 4, H = G::H;
+    typename MmaArith<NW, M>::Elem x, k;
+    ar.splat(k, ar.c.c_out);
+    ar.mul(x, a, k);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < M::T; q += H) {
+            uint32_t v[H], got[H], w[H][NW];
+#pragma unroll
+            for (int j = 0; j < NW; ++j) {
+#pragma unroll
+                for (int e = 0; e < H; ++e) v[e] = x[h][q + e][j % S];
+                G::bcast(got, v, j / S);
+#pragma unroll
+                for (int e = 0; e < H; ++e) w[e][j] = got[e];
+            }
+#pragma unroll
+            for (int e = 0; e < H; ++e) {
+                long long st;
+                const bool live = mma_state<M>(base, n, q + e, h, st);
+                const int lane = M::lane_id(q + e) % G32_LANES;
+#pragma unroll
+                for (int l = 0; l < f32_limbs<NW>; ++l) {
+                    const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+                    uint32_t u = w[e][word] >> shift;
+                    if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) u |= w[e][word + 1] << (32 - shift);
+                    if (live && l % G32_LANES == lane) dst[(size_t)l * n + st] = (int32_t)(u & F32_LIMB_MASK);
+                }
+            }
+        }
+}
 
 // The window of the exponent `e` that starts at its set bit `top`: at
 // most INV_ALPHA_WINDOW bits, down to the lowest set bit among them.

@@ -9,7 +9,7 @@
 // uint32_t[H][S]: the slices of the H lanes that the caller holds.
 //
 // The lane policy P says how lanes talk:
-//   * WarpLanes (sponge.cu, on the card): a thread is one lane, H = 1; the
+//   * WarpLanes (below, on the card): a thread is one lane, H = 1; the
 //     group is four adjacent lanes of a warp, and a broadcast, a shift or a
 //     vote is one __shfl_sync or __ballot_sync of width 4.  Every lane of the
 //     warp must reach every call: the code here never branches on a lane's
@@ -57,6 +57,10 @@ struct HostLanes {
         for (int h = H - 1; h > 0; --h) out[h] = v[h - 1];
         out[0] = 0;
     }
+    // out = v of lane l - 1; lane 0 takes lane 3's
+    G32_MEMBER static void rot(uint32_t out[H], const uint32_t v[H]) {
+        for (int h = 0; h < H; ++h) out[h] = v[(h + H - 1) % H];
+    }
     // bit l set iff lane l's predicate holds
     G32_MEMBER static uint32_t ballot(const bool pred[H]) {
         uint32_t bits = 0;
@@ -64,6 +68,44 @@ struct HostLanes {
         return bits;
     }
 };
+
+#ifdef __CUDACC__
+// A thread is one lane of a group of four adjacent lanes of its warp (the
+// four-lane kernels of sponge.cu and jive_mma.cu).  The whole warp reaches
+// every call (blocks are whole warps, and no lane leaves early).  The
+// functions are __host__ __device__ only so that the templates instantiated
+// for the kernels need no host counterpart; their host bodies never run.
+#ifdef __CUDA_ARCH__
+#define WARP_LANES(device, host) device
+#else
+#define WARP_LANES(device, host) host
+#endif
+struct WarpLanes {
+    static constexpr int H = 1;
+    static constexpr unsigned FULL = 0xffffffffu;
+    G32_MEMBER static int lane(int) { return WARP_LANES((int)(threadIdx.x % G32_LANES), 0); }
+    G32_MEMBER static void bcast(uint32_t out[1], const uint32_t v[1], int src) {
+        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], src, G32_LANES), v[0]);
+    }
+    // lane 3's source, lane 4, wraps to lane 0 of the group
+    G32_MEMBER static void next(uint32_t out[1], const uint32_t v[1]) {
+        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], lane(0) + 1, G32_LANES), v[0]);
+    }
+    G32_MEMBER static void prev(uint32_t out[1], const uint32_t v[1]) {
+        const uint32_t x = WARP_LANES(__shfl_up_sync(FULL, v[0], 1, G32_LANES), 0u);
+        out[0] = lane(0) ? x : 0u;
+    }
+    // lane 0's source, lane -1, wraps to lane 3 of the group
+    G32_MEMBER static void rot(uint32_t out[1], const uint32_t v[1]) {
+        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], lane(0) + G32_LANES - 1, G32_LANES), v[0]);
+    }
+    // the group's four votes, lane l at bit l
+    G32_MEMBER static uint32_t ballot(const bool pred[1]) {
+        return WARP_LANES((__ballot_sync(FULL, pred[0]) >> (threadIdx.x % 32 & ~(G32_LANES - 1u))), 0u) &
+               ((1u << G32_LANES) - 1);
+    }
+};
+#endif  // __CUDACC__
 
 // The carry into each lane (bit l) and out of the group (bit 4), from the
 // lanes that generate a carry (g) and those that pass an incoming one on

@@ -1,0 +1,360 @@
+// The Montgomery product of field32_group.cuh's word-sliced elements with
+// its reduction on Hopper's integer tensor cores: the counterpart of
+// anemoi_tpu/ff/mxu_ops.py:mont_mul_mxu, the JAX package's product whose two
+// products by constants run on the TPU's matrix unit.
+//
+// A warp holds 16 states, the M dimension of mma.sync m16n8k32 (u8 x u8 ->
+// s32): quad g (lanes 4g .. 4g + 3) holds fragment rows g and g + 8, two
+// states, each word-sliced over the quad as in field32_group.cuh (lane t
+// holds words [t S, t S + S), S = NW / 4).  An element of the 16 states is
+// uint32_t[2][T][S]: [half][thread held][word], half 0 the row g state and
+// half 1 the row g + 8 one.  The group code acts on each half's quads.
+//
+// The product r = a b / R' mod p, R' = 2^(32 NW), p' = -p^-1 mod R':
+//   1. T = a b on the integer pipe (g_mul_wide_n): the group's word-sliced
+//      operand scanning of g_mont_mul_n without its m p half.  The window
+//      shifts down one word a step, and the word that leaves it at lane 0,
+//      product word i, joins a queue of S words a lane that moves down the
+//      quad one word a step (lane 3 takes it), so T's low half ends sliced
+//      as the A fragment wants it; the high half is the window, its
+//      deferred carries left for step 3's carry pass.
+//   2. m = T_low p' mod R' on the tensor cores: A is T_low's bytes, the
+//      constant's byte Toeplitz matrix is B (anemoi_tpu_torch/ff/mxu_ops.py,
+//      in the fragment order that B loads).  K is permuted so that lane t's
+//      A registers are its own words (K slots t and t + 4 hold words t S and
+//      t S + 1, and a 12-word field's k16 step's slot t word t S + 2), and N
+//      so that tile j's accumulator gives lane t its own bytes 2j and 2j + 1:
+//      no operand crosses lanes.  Each lane sums its 4S byte columns (each
+//      below 48 * 255^2 < 2^22, exact in s32) into S words and what is above
+//      them; that goes to the next lane, and one vote pair settles the carry
+//      bits (g_carry_in_n).  The top lane's carry out is dropped (mod R').
+//   3. U = m p on the tensor cores, 2S + 1 tiles: U's high half, added to
+//      T's high half in the same column sums, and the low half's top two
+//      columns.  The low half is never summed: T_low + U_low is 0 or R' mod
+//      R', and the carry into each 16-bit chunk of it stays below 2^16, so
+//      the carry out of the low half is (X >> 16) + (X mod 2^16 != 0) for X
+//      the top chunk's two U columns plus T_low's top 16 bits.  Lane 3
+//      holds both and passes that carry to lane 0 in the same shuffle that
+//      brings each other lane the overflow of the lane below.
+//   4. The sum is below 2p: g_reduce_once_n takes p off.
+// Per product and quad: 3 NW shuffles in T, 2 in the carries; the tensor
+// cores do NW / 2 + NW / 2 + 1 n8 tiles (a k32 step each, plus a k16 step at
+// 12 words) for 16 states.
+//
+// The warp policy M says where the lanes are:
+//   * WarpMma (on the card): a thread is one lane, T = 1; the mma is one
+//     inline PTX instruction, and the quads' group code runs over WarpLanes.
+//   * HostWarp: one object holds the whole warp, T = 32, and computes each
+//     mma from its definition over the 32 lanes' fragment registers, after
+//     the PTX ISA's m16n8k32 and m16n8k16 layouts for .u8; the group code
+//     runs over HostLanes, each quad's four lanes.  The host tests build this
+//     header with g++ through it, so they run the statements the kernel runs.
+// Every lane of the warp must reach every mma: nothing here branches on a
+// lane's data around one.
+#pragma once
+
+#include <stdint.h>
+
+#include "field32_group.cuh"
+
+#define MMA_WARP 32
+#define MMA_STATES 16  // states a warp: rows g and g + 8 of each quad g
+
+// B-fragment registers of one n8 tile (the k32 step's two, and a 12-word
+// field's k16 step's one), and the tiles of m and of U.
+template <int NW>
+constexpr int mma_regs = NW == 8 ? 2 : 3;
+template <int NW>
+constexpr int mma_m_tiles = NW / 2;
+template <int NW>
+constexpr int mma_u_tiles = NW / 2 + 1;
+// The words of the constant fragments (mxu_ops.fragment_words): word
+// (tile * R + r) * 32 + lane, m's tiles first.
+template <int NW>
+constexpr int mma_frag_words = (mma_m_tiles<NW> + mma_u_tiles<NW>) * mma_regs<NW> * MMA_WARP;
+
+// The whole warp in one object (the host build).
+struct HostWarp {
+    static constexpr int T = MMA_WARP;  // threads held
+    using G = HostLanes;  // the group policy of each quad's four lanes
+    static int lane_id(int i) { return i; }
+    // d += a b for a K = 32 (m16n8k32) or K = 16 (m16n8k16) step, u8 x u8 ->
+    // s32, from the fragment layouts: lane L = 4 g + t;
+    //   A: register r holds row g + 8 (r & 1), columns 4t + 16 (r >> 1) + i;
+    //   B: register r holds rows (K) 4t + 16 r + i, column g;
+    //   C, D: register r holds row g + 8 (r >> 1), column 2t + (r & 1);
+    // byte i of a register at bits 8i.
+    template <int K>
+    static void mma(int32_t d[][4], const uint32_t a[][K / 8], const uint32_t b[][K / 16]) {
+        uint32_t A[16][K], B[K][8];
+        for (int L = 0; L < MMA_WARP; ++L) {
+            const int g = L / 4, t = L % 4;
+            for (int r = 0; r < K / 8; ++r)
+                for (int i = 0; i < 4; ++i) A[g + 8 * (r & 1)][4 * t + 16 * (r >> 1) + i] = (a[L][r] >> (8 * i)) & 0xffu;
+            for (int r = 0; r < K / 16; ++r)
+                for (int i = 0; i < 4; ++i) B[4 * t + 16 * r + i][g] = (b[L][r] >> (8 * i)) & 0xffu;
+        }
+        for (int L = 0; L < MMA_WARP; ++L) {
+            const int g = L / 4, t = L % 4;
+            for (int r = 0; r < 4; ++r) {
+                const int row = g + 8 * (r >> 1), col = 2 * t + (r & 1);
+                uint32_t s = 0;
+                for (int k = 0; k < K; ++k) s += A[row][k] * B[k][col];
+                d[L][r] += (int32_t)s;
+            }
+        }
+    }
+};
+
+#ifdef __CUDACC__
+// A thread is one lane of the warp (jive_mma.cu); WarpLanes and WARP_LANES
+// are field32_group.cuh's.
+struct WarpMma {
+    static constexpr int T = 1;
+    using G = WarpLanes;
+    G32_MEMBER static int lane_id(int) { return WARP_LANES((int)(threadIdx.x % MMA_WARP), 0); }
+    template <int K>
+    G32_MEMBER static void mma(int32_t d[][4], const uint32_t a[][K / 8], const uint32_t b[][K / 16]) {
+#ifdef __CUDA_ARCH__
+        if constexpr (K == 32)
+            asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                "{%0, %1, %2, %3};"
+                : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3])
+                : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]), "r"(b[0][0]), "r"(b[0][1]));
+        else
+            asm("mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+                "{%0, %1, %2, %3};"
+                : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3])
+                : "r"(a[0][0]), "r"(a[0][1]), "r"(b[0][0]));
+#endif
+    }
+};
+#endif  // __CUDACC__
+
+// t[k] += what each lane takes from the lane below it, for N groups side by
+// side: lane l > 0 takes lane l - 1's ov, lane 0 takes lane 3's in0 (both
+// below 2^32), in one rotation; then one vote pair settles the carry bits.
+// Lane 3's own ov and the carry out of the group are its top word; other
+// lanes' top is 0.
+template <int NW, class P, int N>
+F32_FN void g_carry_in_n(uint32_t (*t)[P::H][NW / 4], const uint32_t (*ov)[P::H], const uint32_t (*in0)[P::H],
+                         uint32_t (*top)[P::H]) {
+    constexpr int S = NW / 4, H = P::H;
+    uint32_t v[H], got[N][H], cin[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+#pragma unroll
+        for (int h = 0; h < H; ++h) v[h] = P::lane(h) == G32_LANES - 1 ? in0[k][h] : ov[k][h];
+        P::rot(got[k], v);
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        bool gen[H], pass[H];
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+            uint32_t carry = got[k][h], all = ~0u;
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+                const uint64_t s = (uint64_t)t[k][h][j] + carry;
+                t[k][h][j] = (uint32_t)s;
+                carry = (uint32_t)(s >> 32);
+                all &= t[k][h][j];
+            }
+            gen[h] = carry != 0;
+            pass[h] = all == ~0u;
+        }
+        cin[k] = g_lookahead(P::ballot(gen), P::ballot(pass));
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+            g_add_bit<S>(t[k][h], (cin[k] >> P::lane(h)) & 1u);
+            top[k][h] = (P::lane(h) == G32_LANES - 1 ? ov[k][h] : 0u) + ((cin[k] >> G32_LANES) & 1u);
+        }
+}
+
+// lo[k], hi[k] + carry[k] = the low and high halves of a[k] * b[k] (2 NW
+// words, each half sliced as the operands) for N products side by side,
+// a[k] and b[k] below 2^(32 NW): lo exact, hi with each lane's deferred
+// carry (below 4, at the weight of the next lane's first word; lane 3's is
+// 0) left in carry for the caller's next carry pass.  Step i adds a_i (broadcast from lane i / S) times the
+// lane's slice of b into its window, as g_mont_mul_n does, and shifts the
+// window down one word: lane l takes lane l + 1's low word as its new top
+// word, with its own deferred carry `up` added there; lane 3's new top word
+// is its carry alone.  The word leaving lane 0 is product word i: lane 3
+// takes it from that same shuffle onto the conveyor, lo, a queue of S words
+// a lane: each step every lane's oldest word moves to the lane below as its
+// newest (one shuffle), and lane 3's newest is the word that left.  After
+// NW steps the queue holds the NW low words in order, lane l's slots words
+// l S .. l S + S - 1, and the window is the high half.
+template <int NW, class P, int N>
+F32_FN void g_mul_wide_n(uint32_t (*lo)[P::H][NW / 4], uint32_t (*hi)[P::H][NW / 4], uint32_t (*carry)[P::H],
+                         const uint32_t (*a)[P::H][NW / 4], const uint32_t (*b)[P::H][NW / 4]) {
+    constexpr int S = NW / 4, H = P::H;
+    uint32_t v[H], ai[N][H], nx[N][H], got[N][H];
+    uint64_t up[N][H];
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+            up[k][h] = 0;
+#pragma unroll
+            for (int j = 0; j < S; ++j) lo[k][h][j] = hi[k][h][j] = 0;
+        }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+#pragma unroll
+            for (int h = 0; h < H; ++h) v[h] = a[k][h][i % S];
+            P::bcast(ai[k], v, i / S);
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+                uint64_t c = 0;
+#pragma unroll
+                for (int j = 0; j < S; ++j) {
+                    const uint64_t s = (uint64_t)ai[k][h] * b[k][h][j] + hi[k][h][j] + c;
+                    hi[k][h][j] = (uint32_t)s;
+                    c = s >> 32;
+                }
+                up[k][h] += c;
+                v[h] = hi[k][h][0];
+            }
+            P::next(nx[k], v);
+#pragma unroll
+            for (int h = 0; h < H; ++h) v[h] = lo[k][h][0];
+            P::next(got[k], v);
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+                const bool last = P::lane(h) == G32_LANES - 1;
+#pragma unroll
+                for (int j = 0; j < S - 1; ++j) {
+                    hi[k][h][j] = hi[k][h][j + 1];
+                    lo[k][h][j] = lo[k][h][j + 1];
+                }
+                const uint64_t s = (uint64_t)(last ? 0u : nx[k][h]) + up[k][h];
+                hi[k][h][S - 1] = (uint32_t)s;
+                up[k][h] = s >> 32;
+                lo[k][h][S - 1] = last ? nx[k][h] : got[k][h];
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+#pragma unroll
+        for (int h = 0; h < H; ++h) carry[k][h] = (uint32_t)up[k][h];
+}
+
+// acc[j] = the NT n8 tiles from tile0 of x's bytes (A, the 16 states of an
+// element, uint32_t[2][T][S]) times the constant's fragments (B: `frag`,
+// word (tile * R + r) * 32 + lane).  Lane t's A registers are its own
+// words: half 0's and half 1's word 0 (K slots t, rows g and g + 8), then
+// word 1 (slots t + 4); at 12 words a k16 step takes word 2.
+template <int NW, class M, int NT>
+F32_FN void mma_tiles(int32_t (*acc)[M::T][4], const uint32_t (*x)[M::T][NW / 4], const uint32_t* frag, int tile0) {
+    constexpr int T = M::T, R = mma_regs<NW>;
+    uint32_t a[T][4], a16[T][2];
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+        a[i][0] = x[0][i][0];
+        a[i][1] = x[1][i][0];
+        a[i][2] = x[0][i][1];
+        a[i][3] = x[1][i][1];
+        if constexpr (NW == 12) {
+            a16[i][0] = x[0][i][2];
+            a16[i][1] = x[1][i][2];
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+        uint32_t b[T][2], b16[T][1];
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+            const uint32_t* f = frag + (tile0 + j) * R * MMA_WARP + M::lane_id(i);
+            b[i][0] = f[0];
+            b[i][1] = f[MMA_WARP];
+            if constexpr (NW == 12) b16[i][0] = f[2 * MMA_WARP];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[j][i][r] = 0;
+        }
+        M::template mma<32>(acc[j], a, b);
+        if constexpr (NW == 12) M::template mma<16>(acc[j], a16, b16);
+    }
+}
+
+// w = the S words of thread i's half-h byte columns in the first 2S tiles
+// (tile j holds the lane's bytes 2j and 2j + 1), plus add[] where given;
+// returns what is above them (below 2^15).  w may alias add.
+template <int NW, class M>
+F32_FN uint32_t mma_words(uint32_t w[NW / 4], const int32_t (*acc)[M::T][4], int i, int h, const uint32_t* add) {
+    uint64_t s = 0;
+#pragma unroll
+    for (int j = 0; j < NW / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+            s += ((uint64_t)(uint32_t)acc[2 * j + e][i][2 * h] << (16 * e)) +
+                 ((uint64_t)(uint32_t)acc[2 * j + e][i][2 * h + 1] << (16 * e + 8));
+        if (add) s += add[j];
+        w[j] = (uint32_t)s;
+        s >>= 32;
+    }
+    return (uint32_t)s;
+}
+
+// r[k] = a[k] * b[k] / 2^(32 NW) mod p for N products of 16-state elements
+// side by side, a[k] below 2^(32 NW) and b[k] below p (or the other way
+// round); p is the group's slices of p, frag the constant fragments.  r may
+// alias a or b.
+template <int NW, class M, int N>
+F32_FN void mma_mont_mul_n(uint32_t (*r)[2][M::T][NW / 4], const uint32_t (*a)[2][M::T][NW / 4],
+                           const uint32_t (*b)[2][M::T][NW / 4], const uint32_t p[][NW / 4], const uint32_t* frag) {
+    using G = typename M::G;
+    constexpr int S = NW / 4, T = M::T, H = G::H, NG = N * 2 * T / H, MT = mma_m_tiles<NW>;
+    // the N products' 2 T / H groups, as the group code takes them (C casts: nvcc refuses
+    // reinterpret_cast between these pointers to arrays of const)
+    using Group = uint32_t (*)[H][S];
+    using CGroup = const uint32_t (*)[H][S];
+    using Words = uint32_t (*)[H];
+    using CWords = const uint32_t (*)[H];
+    uint32_t tlo[N][2][T][S], thi[N][2][T][S], tup[N][2][T], m[N][2][T][S], ov[N][2][T], in0[N][2][T],
+        top[N][2][T];
+    g_mul_wide_n<NW, G, NG>((Group)tlo, (Group)thi, (Words)tup, (CGroup)a, (CGroup)b);
+    // m = T_low p' mod R'
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        int32_t acc[MT][T][4];
+        mma_tiles<NW, M, MT>(acc, tlo[k], frag, 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < T; ++i) {
+                ov[k][h][i] = mma_words<NW, M>(m[k][h][i], acc, i, h, nullptr);
+                in0[k][h][i] = 0;
+            }
+    }
+    g_carry_in_n<NW, G, NG>((Group)m, (CWords)ov,
+                            (CWords)in0, (Words)top);
+    // T_high + U_high + the carry out of T_low + U_low, with T_high's deferred carries
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        int32_t acc[MT + 1][T][4];
+        mma_tiles<NW, M, MT + 1>(acc, m[k], frag, MT);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < T; ++i) {
+                ov[k][h][i] = mma_words<NW, M>(thi[k][h][i], acc, i, h, thi[k][h][i]) + tup[k][h][i];
+                const uint32_t x = (uint32_t)acc[MT][i][2 * h] + ((uint32_t)acc[MT][i][2 * h + 1] << 8) +
+                                   (tlo[k][h][i][S - 1] >> 16);  // lane 3's: U's columns 4 NW - 2, 4 NW - 1
+                in0[k][h][i] = (x >> 16) + ((x & 0xffffu) != 0);
+            }
+    }
+    g_carry_in_n<NW, G, NG>((Group)thi, (CWords)ov,
+                            (CWords)in0, (Words)top);
+    g_reduce_once_n<NW, G, NG>((Group)r, (CGroup)thi,
+                               (CWords)top, p);
+}

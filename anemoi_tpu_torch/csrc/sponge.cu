@@ -185,39 +185,6 @@ F32_FN void sponge_group(int32_t* out, const int32_t* in, size_t n, int E, bool 
 }
 
 #ifdef __CUDACC__
-// A thread is one lane of a group of four adjacent lanes of its warp.  The
-// whole warp reaches every call (blocks are whole warps, and no lane
-// leaves early).  The functions are __host__ __device__ only so that the
-// templates above, instantiated for the kernel, need no host counterpart;
-// their host bodies never run.
-#ifdef __CUDA_ARCH__
-#define WARP_LANES(device, host) device
-#else
-#define WARP_LANES(device, host) host
-#endif
-struct WarpLanes {
-    static constexpr int H = 1;
-    static constexpr unsigned FULL = 0xffffffffu;
-    G32_MEMBER static int lane(int) { return WARP_LANES((int)(threadIdx.x % G32_LANES), 0); }
-    G32_MEMBER static void bcast(uint32_t out[1], const uint32_t v[1], int src) {
-        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], src, G32_LANES), v[0]);
-    }
-    // lane 3's source, lane 4, wraps to lane 0 of the group
-    G32_MEMBER static void next(uint32_t out[1], const uint32_t v[1]) {
-        out[0] = WARP_LANES(__shfl_sync(FULL, v[0], lane(0) + 1, G32_LANES), v[0]);
-    }
-    G32_MEMBER static void prev(uint32_t out[1], const uint32_t v[1]) {
-        const uint32_t x = WARP_LANES(__shfl_up_sync(FULL, v[0], 1, G32_LANES), 0u);
-        out[0] = lane(0) ? x : 0u;
-    }
-    // the group's four votes, lane l at bit l
-    G32_MEMBER static uint32_t ballot(const bool pred[1]) {
-        return WARP_LANES((__ballot_sync(FULL, pred[0]) >> (threadIdx.x % 32 & ~(G32_LANES - 1u))), 0u) &
-               ((1u << G32_LANES) - 1);
-    }
-};
-#undef WARP_LANES
-
 using Consts = AnemoiConsts<ANEMOI_WORDS>;
 
 // The most states for which anemoi_permute launches permute_group_kernel

@@ -5,7 +5,10 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
 ``R = 2^(13L)``, canonical), any N, the ragged edge masked in the kernel.
 
   * ``jive`` (``csrc/jive.cu``, for ``jive_pallas``): fused Jive-k,
-    int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].
+    int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].  With a ``mul_impl``
+    that starts with "mxu" (the JAX package's default product, on its matrix
+    unit) it launches ``csrc/jive_mma.cu`` instead, whose Montgomery
+    reduction runs on the tensor cores (``ff/mxu_ops.py``).
   * ``permutation`` (``csrc/sponge.cu``, for ``permutation_pallas``):
     int32 [WIDTH*L, N] -> int32 [WIDTH*L, N].  Two kernels: up to
     ``permute_group_max`` states (the library's crossover, measured on the
@@ -43,6 +46,7 @@ from .. import _build
 from ..fields.params import InstanceParams, kernel_consts
 from ..permutation.batched import permutation_fn
 from . import limb_ops as lo
+from .mxu_ops import fragment_regs, fragment_tiles, fragment_words, selects_mma
 
 KERNEL_SHAPES = ((2, 2), (4, 2), (4, 4))  # (WIDTH, k) instantiated in jive.cu
 KERNEL_WORDS = (8, 12)  # the word counts each source is built for
@@ -128,19 +132,28 @@ def jive_plain(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=0)
 
 
-def jive(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
+def jive(inst: InstanceParams, k: int, x: torch.Tensor, mul_impl: str | None = None) -> torch.Tensor:
     """Jive-k compression: int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].
 
-    A CUDA tensor goes to the kernel (or the call raises), a CPU tensor to
-    ``jive_plain``.  Inputs must be canonical, as everywhere in the port."""
+    A CUDA tensor goes to a kernel (or the call raises): a ``mul_impl``
+    name that starts with "mxu" (the JAX package's products on the matrix
+    unit) to ``jive_mma_kernel``, whose reduction runs on the tensor cores,
+    counted in ``jive_mma.launches``; every other name, and None, to
+    ``jive_kernel``.  A CPU tensor goes to ``jive_plain`` whatever the name:
+    the function is the same.  Inputs must be canonical, as everywhere in
+    the port."""
     W, L = inst.width, inst.field.n_limbs
     if (W, k) not in KERNEL_SHAPES:
         raise ValueError(f"{inst.qualified_name} has no Jive-{k}")
     if not _check(inst, x, W * L):
         return jive_plain(inst, k, x)
-    lib = library(inst.field.kernel_words).cdll
+    mma = selects_mma(mul_impl)
+    lib = (mma_library if mma else library)(inst.field.kernel_words).cdll
     out = torch.empty(((W // k) * L, x.shape[1]), dtype=torch.int32, device=x.device)
     if x.shape[1] == 0:
+        return out
+    if mma:
+        jive_mma(lib, inst, k, x, out)
         return out
     _launch(lib, "anemoi_jive", x, out, W, k, consts_words(inst).ctypes.data)
     jive.launches += 1
@@ -148,6 +161,23 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor) -> torch.Tensor:
 
 
 jive.launches = 0
+
+
+def jive_mma(lib: ctypes.CDLL, inst: InstanceParams, k: int, x: torch.Tensor, out: torch.Tensor) -> None:
+    """Launches ``jive_mma_kernel`` of `lib` (``csrc/jive_mma.cu``) on CUDA
+    states into `out`; counted in ``jive_mma.launches``."""
+    _launch(lib, "anemoi_jive_mma", x, out, inst.width, k, consts_words(inst).ctypes.data,
+            fragments(inst.field, x.device).data_ptr())
+    jive_mma.launches += 1
+
+
+jive_mma.launches = 0
+
+
+@lru_cache(maxsize=None)
+def fragments(field, device: torch.device) -> torch.Tensor:
+    """The field's constant fragments (``mxu_ops.fragment_words``) on the card."""
+    return torch.from_numpy(fragment_words(field).view(np.int32)).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -261,11 +291,11 @@ sponge.launches = 0
 
 
 def launch_counts() -> dict:
-    """The wrappers' launch counts now: "jive", "permutation" (both
-    permutation kernels), "four_lane" (those of them that went to the
-    four-lane kernel) and "sponge"."""
-    return {"jive": jive.launches, "permutation": permutation.launches, "four_lane": permutation.group_launches,
-            "sponge": sponge.launches}
+    """The wrappers' launch counts now: "jive", "jive_mma" (the tensor-core
+    Jive kernel), "permutation" (both permutation kernels), "four_lane"
+    (those of them that went to the four-lane kernel) and "sponge"."""
+    return {"jive": jive.launches, "jive_mma": jive_mma.launches, "permutation": permutation.launches,
+            "four_lane": permutation.group_launches, "sponge": sponge.launches}
 
 
 # --------------------------------------------------------------------------
@@ -313,6 +343,43 @@ def library(words: int, defines: tuple = ()) -> _build.Library:
                   "anemoi_jive_consts_words", defines)
     _declare(built.cdll.anemoi_jive_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
     return built
+
+
+@lru_cache(maxsize=None)
+def mma_library(words: int, defines: tuple = ()) -> _build.Library:
+    """jive_mma.cu for `words`-word fields, built at first use, its
+    fragment layout checked against ``mxu_ops``; `defines` as
+    ``library``'s."""
+    built = _load("jive_mma.cu", words,
+                  {"anemoi_jive_mma": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]},
+                  "anemoi_jive_mma_consts_words", defines)
+    lib = built.cdll
+    _declare(lib.anemoi_jive_mma_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
+    _declare(lib.anemoi_jive_mma_frag_words, [], ctypes.c_int)
+    _declare(lib.anemoi_mma_check, [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+    m_tiles, u_tiles = fragment_tiles(words)
+    if lib.anemoi_jive_mma_frag_words() != (m_tiles + u_tiles) * fragment_regs(words) * 32:
+        raise RuntimeError(f"jive_mma.cu and mxu_ops disagree on the fragments of {words}-word fields")
+    return built
+
+
+def mma_check(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """One warp's ``mma.sync`` on the card for the 32 lanes' fragment
+    registers: a int32 [32, 4] (k = 16: the first 2 of each row), b [32, 2]
+    (k = 16: the first); returns d [32, 4].  For holding the fragment
+    layouts against the host's definition; not a path of the port."""
+    for x, regs in ((a, 4), (b, 2)):
+        if (x.dtype != torch.int32 or tuple(x.shape) != (32, regs) or x.device.type != "cuda" or x.device != a.device
+                or not x.is_contiguous()):
+            raise ValueError(f"expected contiguous int32 [32, {regs}] fragments on one card, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    d = torch.zeros((32, 4), dtype=torch.int32, device=a.device)
+    lib = mma_library(8).cdll
+    err = lib.anemoi_mma_check(a.data_ptr(), b.data_ptr(), d.data_ptr(), k, a.device.index,
+                               torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel launch failed: anemoi_mma_check: {lib.anemoi_error_string(err).decode()}")
+    return d
 
 
 @lru_cache(maxsize=None)

@@ -43,8 +43,11 @@ class MerkleTree:
     Jive launch a level on the card and the plain version on the CPU.
     ``chunk_b`` is accepted and ignored: a level is one launch whatever its
     size.  ``mul_impl`` and ``ladder`` name the JAX package's TPU schedules:
-    a name it rejects raises ``ValueError`` here too; the others run the
-    port's own arithmetic."""
+    a name it rejects raises ``ValueError`` here too.  A ``mul_impl`` that
+    starts with "mxu" (the JAX kernel's product on its matrix unit) runs
+    every level on the tensor-core Jive kernel on the card
+    (``cuda_backend.jive``); the other names run the default Jive kernel.
+    Every name gives the same root."""
 
     def __init__(
         self,
@@ -58,6 +61,7 @@ class MerkleTree:
     ):
         check_tuning(mul_impl, ladder)
         self.inst = inst
+        self.mul_impl = mul_impl
         self.arity = inst.width
         self.k = inst.width // inst.digest_size
         self.device = cuda_backend.resolve_device(device)
@@ -72,7 +76,7 @@ class MerkleTree:
         return levels
 
     def _level(self, digests: torch.Tensor) -> torch.Tensor:
-        return cuda_backend.jive(self.inst, self.k, level_states(digests, self.arity))
+        return cuda_backend.jive(self.inst, self.k, level_states(digests, self.arity), self.mul_impl)
 
     def _load_level(self, path: Path, n_leaves: int, lv: int) -> torch.Tensor:
         arr = np.load(path)

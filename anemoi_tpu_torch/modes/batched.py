@@ -25,22 +25,28 @@ def _check_on(x, device: torch.device, shape: tuple, what: str) -> None:
         raise ValueError(f"expected {what} {list(shape) + ['B']}, got {tuple(x.shape)}")
 
 
-def jive_compress_batch_fn(inst: InstanceParams, k: int = 2, *, unroll: bool = False, device=None):
+def jive_compress_batch_fn(inst: InstanceParams, k: int = 2, *, unroll: bool = False, device=None,
+                           mul_impl: str | None = None):
     """Returns f(states: int32 [WIDTH, L, B]) -> int32 [WIDTH//k, L, B].
 
     Jive-k: out[i] = sum_j (x[i+c*j] + P(x)[i+c*j]), c = WIDTH//k.
     ``device`` None means the card; the function takes tensors on that
     device only.  ``unroll`` (the JAX package's XLA graph form) is accepted
-    and ignored: the kernel chooses its own code."""
+    and ignored: the kernel chooses its own code.  ``mul_impl`` is the JAX
+    kernel's product (``jive_pallas``'s keyword): a name that starts with
+    "mxu" runs the tensor-core Jive kernel on the card
+    (``cuda_backend.jive``); every name gives the same outputs, and one the
+    JAX package rejects raises ``ValueError``."""
     if inst.width % k or k % 2:
         raise ValueError(f"{inst.qualified_name} has no Jive-{k}")
+    lo.check_tuning(mul_impl)
     device = cuda_backend.resolve_device(device)
     W, L = inst.width, inst.field.n_limbs
 
     def compress(states: torch.Tensor) -> torch.Tensor:
         _check_on(states, device, (W, L), "states")
         B = states.shape[2]
-        return cuda_backend.jive(inst, k, states.reshape(W * L, B)).reshape(W // k, L, B)
+        return cuda_backend.jive(inst, k, states.reshape(W * L, B), mul_impl).reshape(W // k, L, B)
 
     return compress
 

@@ -5,15 +5,20 @@ were:
 
     python -m anemoi_tpu_torch.sass OTHER_CSRC
 
-builds ``jive.cu`` and ``sponge.cu`` of this package's ``csrc/`` and of
-OTHER_CSRC (for example ``csrc/`` of a ``git archive`` of the parent
-commit) at 8 and 12 words with the package's nvcc flags, all at once in a
-temporary directory, and prints for every kernel (``jive_kernel``,
-``permute_kernel``, ``permute_group_kernel``, ``sponge_kernel``) "same" when
-its PTX and its SASS instructions (opcodes, registers, operands, in order)
-are the same in both trees and "changed" otherwise, with how many
+builds ``jive.cu``, ``sponge.cu`` and ``jive_mma.cu`` of this package's
+``csrc/`` and of OTHER_CSRC (for example ``csrc/`` of a ``git archive`` of
+the parent commit; a source it lacks is not built) at 8 and 12 words with
+the package's nvcc flags, all at once in a temporary directory, and prints
+for every kernel (``jive_kernel``, ``permute_kernel``,
+``permute_group_kernel``, ``sponge_kernel``, ``jive_mma_kernel``) "same"
+when its PTX and its SASS instructions (opcodes, registers, operands, in
+order) are the same in both trees and "changed" otherwise, with how many
 instructions differ and whether the binary encodings differ too; a kernel
-that only this tree has is "new".  Needs nvcc and cuobjdump (the card's
+that only this tree has is "new".  For each ``jive_mma_kernel`` it also
+prints its registers and spills (ptxas) and the instructions of one
+product (``product_mix`` of its innermost loop, a trip of the ladder,
+over the products that trip runs): IMMA, IMAD, shuffles, votes and the
+other integer instructions.  Needs nvcc and cuobjdump (the card's
 machine).
 """
 
@@ -33,6 +38,10 @@ from . import _build
 SASS_LINE = r"/\*[0-9a-f]{4,}\*/"  # an instruction's offset in cuobjdump's listing
 OPCODE = re.compile(SASS_LINE + r"\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 COUNTED = ("LDL", "STL", "SHFL", "VOTE", "IMAD")  # local memory, shuffles, votes, multiply-adds
+# what is not integer ALU work in product_mix: the tensor cores, multiply-adds, lane traffic, memory, control
+NOT_ALU = ("IMMA", "IMAD", "SHFL", "VOTE", "LDS", "STS", "LDG", "STG", "LDL", "STL", "LDC", "ULDC", "BRA", "BAR",
+           "BSSY", "BSYNC", "WARPSYNC", "EXIT", "NOP", "CALL", "RET")
+SOURCES = ("jive.cu", "sponge.cu", "jive_mma.cu")
 
 
 def kernel_name(mangled: str) -> str:
@@ -86,15 +95,30 @@ def opcode_counts(lines: list[str]) -> dict[str, int]:
     return {"instructions": sum(op != "NOP" for op in ops), **{c: ops.count(c) for c in COUNTED}}
 
 
-def innermost_loop(lines: list[str]) -> list[str]:
-    """The shortest body between a backward branch and its target: in the
-    sponge kernel, one trip of the x^(1/alpha) ladder, one group product."""
+def product_mix(lines: list[str], products: int = 1) -> dict[str, float]:
+    """Instructions by kind over `products` products: IMMA (tensor cores),
+    IMAD, SHFL, VOTE, ALU (every other instruction but memory and control,
+    NOT_ALU) and all but NOPs."""
+    ops = [m.group(1) for line in lines if (m := OPCODE.search(line))]
+    mix = {k: ops.count(k) for k in ("IMMA", "IMAD", "SHFL", "VOTE")}
+    mix["ALU"] = sum(op not in NOT_ALU for op in ops)
+    mix["instructions"] = sum(op != "NOP" for op in ops)
+    return {k: v / products for k, v in mix.items()}
+
+
+def innermost_loop(lines: list[str], holding: str | None = None) -> list[str]:
+    """The shortest body between a backward branch and its target (of those
+    that hold an instruction of opcode `holding`, if given): in the sponge
+    kernel, one trip of the x^(1/alpha) ladder, one group product; in
+    jive_mma_kernel, with holding="IMMA", the ladder's trip."""
     at = [int(re.search(r"/\*([0-9a-f]{4,})\*/", line).group(1), 16) for line in lines]
     best: list[str] = []
     for off, line in zip(at, lines):
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", line)
         if m and int(m.group(1), 16) < off:
             body = [x for o, x in zip(at, lines) if int(m.group(1), 16) <= o <= off]
+            if holding and not any((op := OPCODE.search(x)) and op.group(1) == holding for x in body):
+                continue
             best = body if not best or len(body) < len(best) else best
     return best
 
@@ -143,17 +167,46 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     trees = (_build.CSRC, Path(argv[0]).resolve())
-    jobs = [(t, s, w) for t in range(2) for s in ("jive.cu", "sponge.cu") for w in (8, 12)]
+    jobs = [(t, s, w) for t in range(2) for s in SOURCES for w in (8, 12) if (trees[t] / s).exists()]
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(jobs)) as pool:
         dirs = [Path(tmp) / "this", Path(tmp) / "other"]
         for d in dirs:
             d.mkdir()
         built = dict(zip(jobs, pool.map(lambda j: _build_one(trees[j[0]], j[1], j[2], dirs[j[0]]), jobs)))
-    for _, source, words in jobs[:4]:
-        this, other = built[(0, source, words)], built[(1, source, words)]
-        for name in sorted(this[0], key=kernel_name):
-            print(f"{words} words, {compare(name, this, other)}", flush=True)
+    for source in SOURCES:
+        for words in (8, 12):
+            this, other = built[(0, source, words)], built.get((1, source, words), ({}, {}))
+            for name in sorted(this[0], key=kernel_name):
+                print(f"{words} words, {compare(name, this, other)}", flush=True)
+            if source == "jive_mma.cu":
+                print_mma_report(words)
     return 0
+
+
+def mma_report(lib) -> dict[str, dict]:
+    """{jive_mma_kernel<...>: its registers, spill store and load bytes, the
+    whole kernel's ``product_mix`` and one product's (its innermost loop
+    that holds an IMMA, a trip of the ladder, over the trip's one product a
+    column)} of a built ``jive_mma.cu`` library (``_build.Library``)."""
+    regs = ptxas_table(lib.ptxas)
+    out = {}
+    for name, lines in functions(disassemble(lib.path)).items():
+        kernel = kernel_name(name)
+        if kernel.startswith("jive_mma_kernel"):
+            width = int(kernel.split("<")[1].split(",")[0])
+            r, st, ld = regs[kernel]
+            out[kernel] = {"registers": r, "spill_store": st, "spill_load": ld, "whole": product_mix(lines),
+                           "product": product_mix(innermost_loop(lines, "IMMA"), products=width // 2)}
+    return out
+
+
+def print_mma_report(words: int) -> None:
+    """``mma_report`` of the package's own build at `words` words."""
+    from .ff import cuda_backend
+
+    for kernel, r in mma_report(cuda_backend.mma_library(words)).items():
+        print(f"{words} words, {kernel}: {r['registers']} registers, spills {r['spill_store']}/{r['spill_load']} "
+              f"bytes; a product: " + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()), flush=True)
 
 
 if __name__ == "__main__":

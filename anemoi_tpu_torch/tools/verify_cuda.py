@@ -28,7 +28,10 @@ model, not a second root on the CPU: the plain PyTorch version takes about
 for 2^10 leaves.  ``--device cpu`` takes the place of ``--interpret``: the
 same checks on the plain version, at sizes the CPU finishes (16 states, 8
 messages, 2^4 leaves).  ``--mul-impl`` and ``--ladder`` are validated as
-the JAX package validates them and change nothing.
+the JAX package validates them.  A ``--mul-impl`` that starts with "mxu"
+(the JAX kernel's product on its matrix unit) runs the Jive checks and the
+root on the tensor-core Jive kernel (``csrc/jive_mma.cu``), whose launches
+the JSON line counts as "jive_mma"; the other names change nothing.
 """
 
 from __future__ import annotations
@@ -70,8 +73,8 @@ def ends(n: int, k: int = GOLDEN_LANES) -> list[int]:
 class FieldCheck:
     """The checks of one field on one device, with seeded canonical inputs."""
 
-    def __init__(self, field: str, device: torch.device, seed: int = 0):
-        self.field, self.device = field, device
+    def __init__(self, field: str, device: torch.device, seed: int = 0, mul_impl: str | None = None):
+        self.field, self.device, self.mul_impl = field, device, mul_impl
         self.sizes = SIZES[device.type]
         self.rng = np.random.default_rng(seed)
 
@@ -107,7 +110,7 @@ class FieldCheck:
     def jive(self, inst: InstanceParams) -> bool:
         n, k = self.sizes["jive"], inst.width // inst.digest_size
         x = self.states(inst, inst.width, n)
-        out = jive_compress_batch_fn(inst, k, device=self.device)(x)
+        out = jive_compress_batch_fn(inst, k, device=self.device, mul_impl=self.mul_impl)(x)
         lanes = ends(n)
         gold, orc = self.held(inst, x, out, lambda s: golden.jive_compress_k(inst, s, k),
                               native.threaded(native.jive_batch_canonical, inst, canonical_host(inst, x), k), lanes)
@@ -128,7 +131,7 @@ class FieldCheck:
         inst = get_instance(self.field, "anemoi_2_1")
         n = self.sizes["root"]
         leaves = self.states(inst, 1, n)[0]
-        root, levels = MerkleTree(inst, device=self.device).root(leaves, return_levels=True)
+        root, levels = MerkleTree(inst, device=self.device, mul_impl=self.mul_impl).root(leaves, return_levels=True)
         try:
             nodes = check_levels(inst, levels)
         except golden.ParityError as e:
@@ -154,7 +157,7 @@ class FieldCheck:
 def kernel_launches(words: int, delta: dict) -> dict:
     """Launch counts under the names of ``chip_smoke.py``'s kernels line."""
     w = "_w12" if words == 12 else ""
-    return {f"jive{w}": delta["jive"], f"permutation{w}": delta["four_lane"],
+    return {f"jive{w}": delta["jive"], f"jive_mma{w}": delta["jive_mma"], f"permutation{w}": delta["four_lane"],
             f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"]}
 
 
@@ -163,7 +166,9 @@ def main(argv=None) -> int:
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--fields", default="vesta", help="comma-separated field names, or all")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu, the plain version")
-    ap.add_argument("--mul-impl", default=None, help="validated and ignored: the JAX package's mul impl")
+    ap.add_argument("--mul-impl", default=None,
+                    help="the JAX package's mul impl: mxu, mxuf, mxus, mxu2 or mxu3 runs the Jive checks and the root "
+                         "on the tensor-core Jive kernel; the others are validated and change nothing")
     ap.add_argument("--ladder", default=None, help="validated and ignored: the JAX package's exp ladder")
     args = ap.parse_args(argv)
     try:
@@ -184,7 +189,7 @@ def main(argv=None) -> int:
     launches: dict = {}
     for field in fields:
         before = launch_counts()
-        ok &= FieldCheck(field, device).run()
+        ok &= FieldCheck(field, device, mul_impl=args.mul_impl).run()
         after = launch_counts()
         for k, v in kernel_launches(get_instance(field, "anemoi_2_1").field.kernel_words,
                                     {k: after[k] - before[k] for k in after}).items():

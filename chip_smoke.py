@@ -139,6 +139,24 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      the CPU on all 256 lanes; ``dryrun_multichip(2)`` on gloo ranks) and
      the demo (``tools.multihost_demo``: 2 gloo workers, then 1 NCCL rank);
      the bench's and the verifier's launches, which they report;
+ 18. the tensor-core Jive kernel (``csrc/jive_mma.cu``, ``mul_impl="mxuf"``;
+     run before 15): its SASS at 8 and 12 words (IMMA in it, or the phase
+     fails; registers, spills, the instructions of one product); the card's
+     mma.sync m16n8k32 and m16n8k16 against the fragment layouts of
+     ``ff/mxu_ops.py``; the main path with every launch count set to 0 just
+     before and read just after (``jive_compress_batch_fn`` and
+     ``MerkleTree`` with ``mul_impl="mxuf"``: 1 + 20 jive_mma launches, none
+     of jive_kernel), its digests equal jive_kernel's and its root the
+     default one; Jive over 2^20 states of Vesta, BLS12-381 (its one launch
+     counted alone: the 12-word path) and BLS12-377 2_1, timed in turns with
+     ``jive_kernel`` (CUDA events) beside its bound (the IMADs left and the
+     u8 multiply-adds); then, beside ``python3 -m anemoi_tpu_torch.bench
+     --impl mxuf`` (a process of its own: its parity ok, its jive_mma
+     launches), 65,536 lanes of each 2^20 Jive against the native oracle,
+     4,099 states (the last warp ragged) of Vesta 2_1, Vesta 4_3 (k = 2,
+     4), BLS12-381 and BLS12-377 2_1, every lane against ``jive_kernel`` and
+     257 (both ends) against the plain version, and the other four 20-limb
+     fields' 2_1, every lane against the native oracle;
  15. one JSON line of kernels: launches, error, times, bound, with the
      fourth and fifth slices' launches beside; every bound beside the IMAD
      rate that phase 14 measured; the native oracle's seconds.
@@ -153,8 +171,9 @@ package beside this file, it exits non-zero before printing any result.
 
 For development, ``--phases 6,8`` runs only the phases named, with phases
 1 and 2 (the device, the builds) and what they need (12 needs 11; 15 needs
-all; 17 needs 5): a short run on the card.  Such a run prints no result
-line.  Phases run in the order 1 to 14, 16, 17, 15.
+all; 17 needs 5): a short run on the card; ``--phases 18`` is the
+tensor-core Jive kernel alone.  Such a run prints no result
+line.  Phases run in the order 1 to 14, 16, 17, 18, 15.
 """
 
 from __future__ import annotations
@@ -254,6 +273,11 @@ TREE_LEAVES = 1 << 24  # BASELINE config 4: the arity-4 Vesta 4_3 tree
 MATRIX_N = 1 << 18
 N_ORACLE_MATRIX = 1 << 12  # phase 17: lanes of each instantiation's Jive at MATRIX_N against the native oracle
 DEMO_LEAVES = 64
+MMA_IMPL = "mxuf"  # phase 18: the JAX package's default product, which selects the tensor-core Jive kernel
+MMA_FIELDS = ("vesta", "bls12_381", "bls12_377")  # phase 18's full-size Jive, each 2_1 over N_FULL states
+MMA_REPS = 2  # phase 18's calls of each kernel a turn, after a warm-up: two turns each
+# the dense int8 rate of the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W): 1,979 TOPS, two a multiply-add
+INT8_MAC_PER_S = 1979e12 / 2
 
 
 def was(key: str, ms: float) -> str:
@@ -271,9 +295,9 @@ def golden_hash_bytes(args) -> list:
     return golden.hash_bytes(get_instance(field, iname), data)
 
 
-ALL_PHASES = frozenset(range(1, 18))
+ALL_PHASES = frozenset(range(1, 19))
 # 12 resumes 11's tree; 15 reports every phase; 17 holds the bench's headline against phase 5's time
-PHASE_NEEDS = {12: {11}, 15: set(range(3, 18)) - {15}, 17: {5}}
+PHASE_NEEDS = {12: {11}, 15: set(range(3, 19)) - {15}, 17: {5}}
 
 
 def run_module(module: str, *args: str) -> subprocess.Popen:
@@ -398,7 +422,8 @@ def main() -> int:
     plain_times = {}  # the plain versions' ms, phases 6 and 9
     plain_lanes = {}  # words: the lanes of the 4_3 permutation's plain call, phases 6 and 9
     max_err = dict.fromkeys(["jive", "permutation", "permutation_thread", "sponge", "jive_w12", "permutation_w12",
-                             "permutation_thread_w12", "sponge_w12", "sqr_chain", "mad_loop"], 0)
+                             "permutation_thread_w12", "sponge_w12", "sqr_chain", "mad_loop", "jive_mma",
+                             "jive_mma_w12"], 0)
 
     def canonical_states(inst, n):
         """int32 [WIDTH, L, n] random canonical states on the card."""
@@ -626,6 +651,8 @@ def main() -> int:
             "sponge.cu, 8 words": lambda: cuda_backend.sponge_library(8),
             "sponge.cu, 12 words": lambda: cuda_backend.sponge_library(12),
             "microbench.cu": mb.library,
+            "jive_mma.cu, 8 words": lambda: cuda_backend.mma_library(8),
+            "jive_mma.cu, 12 words": lambda: cuda_backend.mma_library(12),
         }
         with ThreadPoolExecutor(len(builds) + 1) as pool:  # one compiler process per build, all at once
             jobs = {name: pool.submit(fn) for name, fn in builds.items()}
@@ -635,6 +662,7 @@ def main() -> int:
         build_s = time.perf_counter() - t
         lib, sponge_lib = built["jive.cu, 8 words"], built["sponge.cu, 8 words"]
         lib12, sponge_lib12 = built["jive.cu, 12 words"], built["sponge.cu, 12 words"]
+        mma_libs = {8: built["jive_mma.cu, 8 words"], 12: built["jive_mma.cu, 12 words"]}  # phase 18 reads them
         for name, b in built.items():
             print(f"build: {name}: nvcc {b.build_seconds if b.build_seconds is not None else 'not run (built earlier)'} "
                   f"s, {b.path.name}", flush=True)
@@ -1217,9 +1245,9 @@ def main() -> int:
                   flush=True)
         fill = mad[mb.fill_shape(sms)]
         mad_rate = fill["iters_per_clock_per_sm"]
-        sass = [line for line in mb.mad_sass() if not line.endswith("NOP;")]
-        print(f"  mad_loop_kernel SASS ({len(sass)} instructions but NOPs; cuobjdump -sass):", flush=True)
-        for line in sass:
+        mad_sass = [line for line in mb.mad_sass() if not line.endswith("NOP;")]
+        print(f"  mad_loop_kernel SASS ({len(mad_sass)} instructions but NOPs; cuobjdump -sass):", flush=True)
+        for line in mad_sass:
             print(f"    {line}", flush=True)
         print(f"  measured: {mad_rate:.3f} multiply-add iterations per clock per SM with the card filled, against "
               f"the {IMAD_PER_CLOCK_PER_SM} IMADs per clock per SM the bound assumes", flush=True)
@@ -1555,6 +1583,163 @@ def main() -> int:
               f"on all {example.shape[-1]} lanes; dryrun_multichip(2) on 2 gloo ranks ok ({since()})", flush=True)
         del out, example
 
+    # 18 --------------------------------------------------------------------
+    if run(18):
+        phase(f"18 the tensor-core Jive kernel (mul_impl {MMA_IMPL!r}): SASS, fragment layouts, the main path, full "
+              f"size, holds, the bench")
+        from anemoi_tpu_torch.ff import mxu_ops
+
+        t18 = time.perf_counter()
+        since18 = lambda: f"{time.perf_counter() - t18:.1f} s into the phase"
+        mma = {"ms": {}, "jive_ms": {}, "bound": {}, "plain_ms": {}}
+        for words, b in mma_libs.items():
+            for kernel, r in sorted(sass.mma_report(b).items()):
+                width, k = (int(a) for a in kernel.split("<")[1].rstrip(">").split(","))
+                print(f"  {words} words, {kernel}: {r['registers']} registers, spills {r['spill_store']}/"
+                      f"{r['spill_load']} bytes, {b.cdll.anemoi_jive_mma_blocks_per_sm(width, k)} blocks per SM; "
+                      f"SASS {r['whole']['instructions']:g} instructions, IMMA {r['whole']['IMMA']:g}; a product "
+                      f"(the ladder's trip over its {width // 2}): "
+                      + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()), flush=True)
+                if not r["whole"]["IMMA"]:
+                    fail(f"{kernel} at {words} words has no IMMA instruction")
+        # the fragment layouts: the card's mma.sync against the product of the matrices they pack
+        for K in (32, 16):
+            A, B = rng.integers(0, 256, (16, K)), rng.integers(0, 256, (K, 8))
+            pad = lambda x, cols: np.pad(x, ((0, 0), (0, cols - x.shape[1])))
+            d = cuda_backend.mma_check(torch.from_numpy(pad(mxu_ops.pack_a(A), 4).view(np.int32)).to(dev),
+                                       torch.from_numpy(pad(mxu_ops.pack_b(B), 2).view(np.int32)).to(dev), K)
+            if not np.array_equal(mxu_ops.unpack_d(d.cpu().numpy()), A @ B):
+                fail(f"mma.sync m16n8k{K} on the card disagrees with the fragment layouts")
+        print(f"  mma.sync m16n8k32 and m16n8k16 (u8) on the card: the fragment layouts of mxu_ops and HostWarp "
+              f"hold ({since18()})", flush=True)
+
+        # the main path with the tensor-core product: Jive over N_FULL states and the N_FULL-leaf root
+        inst = get_instance("vesta", "anemoi_2_1")
+        states = canonical_states(inst, N_FULL)
+        leaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
+        compress = jive_compress_batch_fn(inst, 2, device=dev, mul_impl=MMA_IMPL)
+        tree = MerkleTree(inst, device=dev, mul_impl=MMA_IMPL)
+        torch.cuda.synchronize()
+        cuda_backend.jive.launches = cuda_backend.jive_mma.launches = 0
+        digests = compress(states)
+        root = tree.root(leaves)
+        torch.cuda.synchronize()
+        mma["launches"], default_launches = cuda_backend.jive_mma.launches, cuda_backend.jive.launches
+        print(f"  main path, mul_impl {MMA_IMPL!r}: Jive over {N_FULL} states and a {N_FULL}-leaf root: "
+              f"{mma['launches']} jive_mma launches, {default_launches} jive_kernel launches", flush=True)
+        if mma["launches"] != 1 + tree.num_levels(N_FULL) or default_launches:
+            fail(f"the mxu main path took {mma['launches']} jive_mma and {default_launches} jive_kernel launches")
+        held(digests, jive_compress_batch_fn(inst, 2, device=dev)(states), f"{N_FULL} Jive, against jive_kernel",
+             "jive_mma")
+        held(root, MerkleTree(inst, device=dev).root(leaves), f"the {N_FULL}-leaf root, against the default root",
+             "jive_mma")
+        print(f"  its {N_FULL} digests equal jive_kernel's; MerkleTree(mul_impl={MMA_IMPL!r}).root equals the default "
+              f"root ({since18()})", flush=True)
+        del leaves, digests
+
+        def mma_bound(inst, n: int) -> dict:
+            """The least time for n Jive permutations with the tensor-core product: the larger of the IMADs left
+            on the integer pipe (each product's bilinear half: 2 NW^2 for a product, NW (NW + 1) for a squaring,
+            what microbench's counts keep without the reduction's 2 NW^2 + NW) at imad_per_s, and the u8
+            multiply-adds of the reduction's two products (m: 4 NW x 4 NW; U: 4 NW x (4 NW + 2), the columns the
+            kernel needs) at INT8_MAC_PER_S; and the bytes."""
+            w = inst.field.kernel_words
+            squarings, products = permutation_work(inst, inv_alpha_chain(inst.field.name))
+            red = 2 * w * w + w
+            imads = squarings * (mb.imads_per_squaring(w) - red) + products * (mb.imads_per_product(w) - red)
+            macs = (squarings + products) * (4 * w * 4 * w + 4 * w * (4 * w + 2))
+            imad_ms, mac_ms = n * imads / imad_per_s * 1e3, n * macs / INT8_MAC_PER_S * 1e3
+            bytes_ms = n * (inst.width + inst.width // 2) * inst.field.n_limbs * 4 / HBM_BYTES_PER_S * 1e3
+            ms = max(imad_ms, mac_ms, bytes_ms)
+            return {"words": w, "imads": imads, "macs": macs, "imad_ms": imad_ms, "mac_ms": mac_ms,
+                    "bytes_ms": bytes_ms, "bound_ms": ms, "bound_by": "bytes" if ms == bytes_ms else "operations",
+                    "unit": "bytes" if ms == bytes_ms else "IMAD" if ms == imad_ms else "u8 MAC"}
+
+        # full size, the card to itself: each field's 2_1 Jive over N_FULL states, the tensor-core kernel and
+        # jive_kernel in turns (CUDA events); the 12-word path's launch counted alone
+        outs = {}
+        for field in MMA_FIELDS:
+            inst = get_instance(field, "anemoi_2_1")
+            words = inst.field.kernel_words
+            x = states.reshape(-1, N_FULL) if field == "vesta" else canonical_states(inst, N_FULL).reshape(-1, N_FULL)
+            cuda_backend.jive_mma.launches = 0
+            outs[field] = cuda_backend.jive(inst, 2, x, MMA_IMPL), x
+            torch.cuda.synchronize()
+            if field == "bls12_381":
+                mma["launches_w12"] = cuda_backend.jive_mma.launches
+            t_jive = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x), MMA_REPS)
+            t_mma = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x, MMA_IMPL), MMA_REPS)
+            t_mma2 = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x, MMA_IMPL), MMA_REPS)
+            t_jive2 = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x), MMA_REPS)
+            mma["ms"][field], mma["jive_ms"][field] = (t_mma + t_mma2) / 2, (t_jive + t_jive2) / 2
+            b = mma["bound"][field] = mma_bound(inst, N_FULL)
+            print(f"  {field}/anemoi_2_1 Jive over {N_FULL} states ({words} words; {smi}; CUDA events, {MMA_REPS} "
+                  f"calls after a warm-up, in turns jive_kernel, mma, mma, jive_kernel): tensor-core kernel "
+                  f"{t_mma:.3f} and {t_mma2:.3f} ms, jive_kernel {t_jive:.3f} and {t_jive2:.3f} ms "
+                  f"({mma['jive_ms'][field] / mma['ms'][field]:.3f}x); bound {b['bound_ms']:.3f} ms by {b['unit']} "
+                  f"(per permutation {b['imads']} IMADs left, {b['imad_ms']:.3f} ms; {b['macs']} u8 MACs, "
+                  f"{b['mac_ms']:.3f} ms at {INT8_MAC_PER_S:.4g}/s; bytes {b['bytes_ms']:.4f} ms): kernel at "
+                  f"{b['bound_ms'] / mma['ms'][field]:.1%} of it ({since18()})", flush=True)
+        torch.cuda.synchronize()
+        del states
+
+        # the bench with the tensor-core product, a process of its own, beside this process's checks
+        bench_mma = run_module("anemoi_tpu_torch.bench", "--impl", MMA_IMPL)
+        try:
+            half = N_ORACLE_FULL // 2
+            cols = torch.cat([torch.arange(half), torch.arange(N_FULL - half, N_FULL)]).to(dev)
+            for field, (out, x) in outs.items():
+                inst = get_instance(field, "anemoi_2_1")
+                want = oracle_jive(inst, x.reshape(inst.width, -1, N_FULL)[:, :, cols], 2, what=f"phase 18 {field}")
+                held_oracle(canonical_host(inst, out[:, cols]), want, f"{field} {N_FULL} Jive, {MMA_IMPL}",
+                            "jive_mma" if inst.field.kernel_words == 8 else "jive_mma_w12")
+            print(f"  {N_ORACLE_FULL} lanes ({half} at each end) of each held against the native oracle ("
+                  + ", ".join(f"{f} {oracle_s[f'phase 18 {f}']:.2f} s" for f in outs) + f"): identical ({since18()})",
+                  flush=True)
+            del outs
+
+            # 4,099 states (the last warp ragged): every lane against jive_kernel, N_PLAIN at both ends against the
+            # plain version; the other 20-limb fields' 2_1, every lane against the native oracle
+            for field, iname, k in (("vesta", "anemoi_2_1", 2), ("vesta", "anemoi_4_3", 2),
+                                    ("vesta", "anemoi_4_3", 4), ("bls12_381", "anemoi_2_1", 2),
+                                    ("bls12_377", "anemoi_2_1", 2)):
+                inst = get_instance(field, iname)
+                W, L, words = inst.width, inst.field.n_limbs, inst.field.kernel_words
+                key = "jive_mma" if words == 8 else "jive_mma_w12"
+                x = canonical_states(inst, N_CHECK).reshape(W * L, N_CHECK)
+                out = cuda_backend.jive(inst, k, x, MMA_IMPL)
+                held(out, cuda_backend.jive(inst, k, x), f"{field}/{iname} k={k}, against jive_kernel", key)
+                plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, k, x[:, lanes].contiguous()))
+                held(out[:, lanes], plain, f"{field}/{iname} k={k}, against the plain version", key)
+                if (iname, k) == ("anemoi_2_1", 2):
+                    mma["plain_ms"].setdefault(words, plain_ms)
+                print(f"  {field}/{iname} k={k}: {N_CHECK} lanes, all held against jive_kernel and {N_PLAIN} against "
+                      f"the plain version ({plain_ms / 1e3:.2f} s): identical", flush=True)
+            for field in FIELDS_20:
+                if field == "vesta":
+                    continue
+                inst = get_instance(field, "anemoi_2_1")
+                st = canonical_states(inst, N_CHECK)
+                out = jive_compress_batch_fn(inst, 2, device=dev, mul_impl=MMA_IMPL)(st)
+                want = oracle_jive(inst, st, 2, what="phase 18")
+                held_oracle(canonical_host(inst, out), want, f"{field}/anemoi_2_1 k=2, {MMA_IMPL}", "jive_mma")
+            print(f"  the other 20-limb fields' anemoi_2_1, all {N_CHECK} lanes each against the native oracle "
+                  f"({oracle_s['phase 18']:.2f} s): identical ({since18()})", flush=True)
+            lines = module_result(bench_mma, f"the bench with --impl {MMA_IMPL}", timeout=900)
+        finally:
+            bench_mma.kill()
+            bench_mma.wait()
+        doc = json.loads([line for line in lines if line.startswith("{")][-1])
+        runs = [doc, *(c for c in doc["configs"] if "launches" in c)]
+        mma["bench_launches"] = sum(c["launches"].get("jive_mma", 0) for c in runs)
+        if not doc["launches"]["jive_mma"] or doc["launches"]["jive"] or any(
+                c.get("parity") != "ok" for c in runs):
+            fail(f"the bench with --impl {MMA_IMPL}: headline launches {doc['launches']}, parity "
+                 f"{[c.get('parity') for c in runs]}")
+        print(f"  the bench (python3 -m anemoi_tpu_torch.bench --impl {MMA_IMPL}, beside this phase's checks): "
+              f"headline {doc['value']} hashes/s, {len(runs)} runs with their parity ok, {mma['bench_launches']} "
+              f"jive_mma launches in all ({since18()})", flush=True)
+
     # 15 --------------------------------------------------------------------
     if run(15):
         phase("15 kernels")
@@ -1652,6 +1837,21 @@ def main() -> int:
                   cli_hash_launches=slice4["cli_hash bls12_381/anemoi_4_3"]["sponge"],
                   bench_launches=slice5["bench"]["sponge_w12"], verify_launches=slice5["verify"]["sponge_w12"],
                   build_s=sponge_lib12.build_seconds),
+            entry("jive_mma", "anemoi_tpu_torch/csrc/jive_mma.cu", "anemoi_tpu/ff/pallas_backend.py:707",
+                  mma["launches"], mma["ms"]["vesta"], mma["plain_ms"][8], mma["bound"]["vesta"], words=8,
+                  mul_impl=MMA_IMPL, instance="vesta/anemoi_2_1", lanes=N_FULL, jive_kernel_ms=mma["jive_ms"]["vesta"],
+                  bound_unit=mma["bound"]["vesta"]["unit"], imad_bound_ms=mma["bound"]["vesta"]["imad_ms"],
+                  mac_bound_ms=mma["bound"]["vesta"]["mac_ms"], plain_lanes=N_PLAIN, oracle_lanes=N_ORACLE_FULL,
+                  root_launches=mma["launches"] - 1, bench_launches=mma["bench_launches"],
+                  build_s=mma_libs[8].build_seconds),
+            entry("jive_mma_w12", "anemoi_tpu_torch/csrc/jive_mma.cu", "anemoi_tpu/ff/pallas_backend.py:707",
+                  mma["launches_w12"], mma["ms"]["bls12_381"], mma["plain_ms"][12], mma["bound"]["bls12_381"],
+                  words=12, mul_impl=MMA_IMPL, instance="bls12_381/anemoi_2_1", lanes=N_FULL,
+                  jive_kernel_ms=mma["jive_ms"]["bls12_381"], bound_unit=mma["bound"]["bls12_381"]["unit"],
+                  imad_bound_ms=mma["bound"]["bls12_381"]["imad_ms"], mac_bound_ms=mma["bound"]["bls12_381"]["mac_ms"],
+                  ms_bls12_377=mma["ms"]["bls12_377"], jive_kernel_ms_bls12_377=mma["jive_ms"]["bls12_377"],
+                  bound_ms_bls12_377=mma["bound"]["bls12_377"]["bound_ms"], plain_lanes=N_PLAIN,
+                  plain_instance="bls12_381/anemoi_2_1", oracle_lanes=N_ORACLE_FULL, build_s=mma_libs[12].build_seconds),
             entry("sqr_chain", "anemoi_tpu_torch/csrc/microbench.cu", "tools/mxu_prototype.py:110",
                   mb_launches["sqr_chain"], chain_bls["ms2"], chain_plain_ms["bls12_381"], ops(chain_bound_ms),
                   instance="bls12_381", lanes=MB_LANES, squarings=CHAIN_TRIPS[1], plain_lanes=8, plain_squarings=8,

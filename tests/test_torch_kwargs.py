@@ -12,18 +12,25 @@ the port's ``MerkleTree`` too.
 
 import numpy as np
 import pytest
+import torch
 
 import anemoi_tpu_torch as att
 from anemoi_tpu.ff import golden as jgolden
 from anemoi_tpu.ff import limb_ops as jlo
 from anemoi_tpu.fields import params as jparams
 from anemoi_tpu_torch.ff import limb_ops as lo
+from anemoi_tpu_torch import bench
+from anemoi_tpu_torch.ff import cuda_backend
 from anemoi_tpu_torch.fields.params import get_instance
 from anemoi_tpu_torch.merkle.tree import MerkleTree
 from anemoi_tpu_torch.modes import batched as bm
 from anemoi_tpu_torch.modes.bytes_pipeline import hash_bytes_batch
 from anemoi_tpu_torch.modes.streaming import BatchedSponge
 from anemoi_tpu_torch.permutation.batched import permutation_fn
+from anemoi_tpu_torch.tools import verify_cuda
+
+from .test_torch_bench import oracle_plain  # noqa: F401  (a fixture)
+from .test_torch_sponge import _FakeCudaTensor
 
 
 def _ref(field, iname):
@@ -107,3 +114,61 @@ def test_unroll():
     states = _states(four, 2, 2)
     got = bm.decode_states(four, permutation_fn(four, unroll=True)(enc(states)))
     assert got == [jgolden.permutation(ref4, s) for s in states]
+
+
+def test_merkle_tree_mxu_gives_the_default_root():
+    """MerkleTree(mul_impl="mxuf") on the CPU: the default tree's root and
+    the golden model's."""
+    inst = get_instance("vesta", "anemoi_2_1")
+    leaves = lo.encode_ints([5, 6], inst.field)
+    got = MerkleTree(inst, mul_impl="mxuf", device="cpu").root(leaves)
+    assert got.equal(MerkleTree(inst, device="cpu").root(leaves))
+    assert lo.decode_ints(got, inst.field) == jgolden.jive_compress_k(_ref("vesta", "anemoi_2_1"), [5, 6], 2)
+
+
+def test_bench_and_verifier_mxu_give_the_default_outputs(oracle_plain, capsys):  # noqa: F811
+    """bench --impl mxuf and verify_cuda --mul-impl mxu on the CPU: the
+    default's checksum and parity, and ALL PASS."""
+    runs = [bench.bench_jive(n=16, reps=1, device="cpu", mul_impl=impl) for impl in (None, "mxuf")]
+    assert runs[0]["checksum"] == runs[1]["checksum"] and runs[1]["parity"] == "ok"
+    assert bench.main(["--device", "cpu", "--n", "16", "--reps", "1", "--headline-only", "--impl", "mxuf"]) == 0
+    capsys.readouterr()
+    assert verify_cuda.main(["--device", "cpu", "--fields", "vesta", "--mul-impl", "mxu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1].endswith("ALL PASS") and '"jive_mma": 0' in lines[-2]
+
+
+def test_rejected_mul_impl_in_the_jive_entry_points():
+    inst = get_instance("vesta", "anemoi_2_1")
+    for bad in ("mxq", "karatsuba"):
+        with pytest.raises(ValueError):
+            bm.jive_compress_batch_fn(inst, 2, device="cpu", mul_impl=bad)
+        with pytest.raises(ValueError):
+            MerkleTree(inst, mul_impl=bad, device="cpu")
+    with pytest.raises(SystemExit):
+        bench.main(["--device", "cpu", "--impl", "mxq"])
+    with pytest.raises(SystemExit):
+        verify_cuda.main(["--device", "cpu", "--mul-impl", "mxq"])
+
+
+def test_cuda_tensors_with_mxu_go_to_the_tensor_core_kernel(monkeypatch):
+    """A CUDA tensor with an "mxu" name asks for jive_mma.cu's library of its
+    word count, any other name for jive.cu's; neither falls back to the
+    plain path (here, with no library to load, both raise)."""
+    monkeypatch.setattr(cuda_backend, "jive_plain", lambda *a: pytest.fail("plain path taken"))
+    asked = []
+
+    def no_library(source):
+        def load(words):
+            asked.append((source, words))
+            raise RuntimeError("no kernel library here")
+        return load
+
+    monkeypatch.setattr(cuda_backend, "library", no_library("jive.cu"))
+    monkeypatch.setattr(cuda_backend, "mma_library", no_library("jive_mma.cu"))
+    fake = lambda rows: torch.zeros(rows, 2, dtype=torch.int32).as_subclass(_FakeCudaTensor)
+    for inst, impl in [(get_instance("vesta", "anemoi_2_1"), "mxuf"), (get_instance("vesta", "anemoi_2_1"), None),
+                       (get_instance("bls12_381", "anemoi_2_1"), "mxu"), (get_instance("vesta", "anemoi_4_3"), "cios2")]:
+        with pytest.raises(RuntimeError, match="no kernel library"):
+            cuda_backend.jive(inst, 2, fake(inst.width * inst.field.n_limbs), impl)
+    assert asked == [("jive_mma.cu", 8), ("jive.cu", 8), ("jive_mma.cu", 12), ("jive.cu", 8)]

@@ -114,3 +114,17 @@ def test_bounds_sweep_sets_the_sources_constants(source):
     assert bounds_sweep.defines(source, 3) == tuple(f"-D{m}=3" for m in bounds_sweep.MACROS[source])
     timed = [k for k in bounds_sweep.KERNELS if k[0] == source]
     assert timed and all(k[2] in bounds_sweep.MACROS[source] and k[1].split("<")[0] in text for k in timed)
+
+
+def test_innermost_loop_holding_and_product_mix():
+    """With `holding`, the shortest loop that holds that opcode (the ladder's
+    trip, not a copy loop); product_mix counts its instructions by kind,
+    over the products a trip runs."""
+    lines = ["/*0000*/ LDG.E R1, [R2.64] ;", "/*0010*/ STS [R3], R1 ;", "/*0020*/ @P0 BRA 0x0 ;",
+             "/*0030*/ IMMA.16832.U8.U8 R4, R6.ROW, R8.COL, R4 ;", "/*0040*/ IMAD.WIDE.U32 R10, R1, R2, RZ ;",
+             "/*0050*/ SHFL.IDX PT, R4, R3, RZ, 0x1c1f ;", "/*0060*/ LOP3.LUT R5, R4, 0xff, RZ, 0xc0, !PT ;",
+             "/*0070*/ IADD3 R6, R5, R4, RZ ;", "/*0080*/ @P1 BRA 0x30 ;", "/*0090*/ EXIT ;"]
+    assert sass.innermost_loop(lines) == lines[:3]
+    assert sass.innermost_loop(lines, "IMMA") == lines[3:9]
+    assert sass.product_mix(sass.innermost_loop(lines, "IMMA"), products=2) == {
+        "IMMA": 0.5, "IMAD": 0.5, "SHFL": 0.5, "VOTE": 0.0, "ALU": 1.0, "instructions": 3.0}
