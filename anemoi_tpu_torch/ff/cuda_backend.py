@@ -22,13 +22,19 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
     shuffles (``csrc/field32_group.cuh``).  The Jive kernel runs one thread
     per state; its x^(1/alpha) is a 4-bit sliding window whose table lives
     in shared memory, as in the one-thread permutation kernel.
+  * With an "mxu" ``mul_impl``, ``permutation`` and ``sponge`` launch
+    ``csrc/sponge_mma.cu`` instead (``permute_mma_kernel``,
+    ``sponge_mma_kernel``): the reduction on the tensor cores, as
+    ``jive_mma.cu``'s, 16 states or messages a warp.
 
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
 ``limb_ops``) for a tensor on the CPU; it never falls back from one to the
 other.  Each counts its launches in ``<wrapper>.launches``;
 ``permutation.group_launches`` counts those of them that went to the
-four-lane kernel, as the launcher reports the kernel it picked.  The kernels
+four-lane kernel, as the launcher reports the kernel it picked; the
+tensor-core kernels count theirs in ``jive_mma.launches``,
+``permutation_mma.launches`` and ``sponge_mma.launches``.  The kernels
 cover every field: each source is built once per word count (8 for the
 20-limb fields, 12 for the 30-limb ones), and a wrapper launches the
 library of its field's ``kernel_words``.
@@ -141,7 +147,8 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor, mul_impl: str | None = N
     counted in ``jive_mma.launches``; every other name, and None, to
     ``jive_kernel``.  A CPU tensor goes to ``jive_plain`` whatever the name:
     the function is the same.  Inputs must be canonical, as everywhere in
-    the port."""
+    the port.  A name the JAX package rejects raises ValueError."""
+    lo.check_tuning(mul_impl)
     W, L = inst.width, inst.field.n_limbs
     if (W, k) not in KERNEL_SHAPES:
         raise ValueError(f"{inst.qualified_name} has no Jive-{k}")
@@ -191,16 +198,25 @@ def permutation_plain(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
     return _plain_permute(inst)(x.reshape(W, L, x.shape[1])).reshape(W * L, x.shape[1])
 
 
-def permutation(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
+def permutation(inst: InstanceParams, x: torch.Tensor, mul_impl: str | None = None) -> torch.Tensor:
     """The Anemoi permutation of every state: int32 [WIDTH*L, N] -> int32
-    [WIDTH*L, N].  A CUDA tensor goes to a kernel (or the call raises): the
-    four-lane kernel up to ``permute_group_max`` states, the one-thread
-    kernel above; a CPU tensor goes to ``permutation_plain``."""
+    [WIDTH*L, N].  A CUDA tensor goes to a kernel (or the call raises): a
+    ``mul_impl`` name that starts with "mxu" to ``permute_mma_kernel``,
+    whose reduction runs on the tensor cores, counted in
+    ``permutation_mma.launches``; every other name, and None, to the
+    four-lane kernel up to ``permute_group_max`` states and the one-thread
+    kernel above.  A CPU tensor goes to ``permutation_plain`` whatever the
+    name.  A name the JAX package rejects raises ValueError."""
+    lo.check_tuning(mul_impl)
     W, L = inst.width, inst.field.n_limbs
     if not _check(inst, x, W * L):
         return permutation_plain(inst, x)
     if x.shape[1] == 0:
         return torch.empty_like(x)
+    if selects_mma(mul_impl):
+        out = torch.empty_like(x)
+        permutation_mma(sponge_mma_library(inst.field.kernel_words).cdll, inst, x, out)
+        return out
     out, group = _permute(inst, x, -1)
     permutation.launches += 1
     permutation.group_launches += group
@@ -209,6 +225,17 @@ def permutation(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
 
 permutation.launches = 0
 permutation.group_launches = 0
+
+
+def permutation_mma(lib: ctypes.CDLL, inst: InstanceParams, x: torch.Tensor, out: torch.Tensor) -> None:
+    """Launches ``permute_mma_kernel`` of `lib` (``csrc/sponge_mma.cu``) on
+    CUDA states into `out`; counted in ``permutation_mma.launches``."""
+    _launch(lib, "anemoi_permute_mma", x, out, inst.width, consts_words(inst).ctypes.data,
+            fragments(inst.field, x.device).data_ptr())
+    permutation_mma.launches += 1
+
+
+permutation_mma.launches = 0
 
 
 def permute_group_max(words: int) -> int:
@@ -269,18 +296,27 @@ def sponge_plain(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> to
     return torch.cat(state[:ds], dim=0)
 
 
-def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> torch.Tensor:
+def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor, mul_impl: str | None = None) -> torch.Tensor:
     """The sponge over N messages of E = num_elements >= rate elements:
     int32 [E*L, N] Montgomery limbs -> int32 [DIGEST*L, N].  A CUDA tensor
-    goes to the kernel (or the call raises), a CPU tensor to ``sponge_plain``."""
+    goes to a kernel (or the call raises): a ``mul_impl`` name that starts
+    with "mxu" to ``sponge_mma_kernel``, whose reduction runs on the tensor
+    cores, counted in ``sponge_mma.launches``; every other name, and None,
+    to ``sponge_kernel``.  A CPU tensor goes to ``sponge_plain`` whatever
+    the name.  A name the JAX package rejects raises ValueError."""
+    lo.check_tuning(mul_impl)
     L, rate, ds = inst.field.n_limbs, inst.rate, inst.digest_size
     if num_elements < rate:
         raise ValueError(f"the fused sponge takes E >= rate = {rate} elements, got {num_elements}")
     if not _check(inst, x, num_elements * L):
         return sponge_plain(inst, num_elements, x)
-    lib = sponge_library(inst.field.kernel_words).cdll
+    mma = selects_mma(mul_impl)
+    lib = (sponge_mma_library if mma else sponge_library)(inst.field.kernel_words).cdll
     out = torch.empty((ds * L, x.shape[1]), dtype=torch.int32, device=x.device)
     if x.shape[1] == 0:
+        return out
+    if mma:
+        sponge_mma(lib, inst, num_elements, x, out)
         return out
     _launch(lib, "anemoi_sponge", x, out, inst.width, num_elements, consts_words(inst).ctypes.data)
     sponge.launches += 1
@@ -290,12 +326,27 @@ def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor) -> torch.Te
 sponge.launches = 0
 
 
+def sponge_mma(lib: ctypes.CDLL, inst: InstanceParams, num_elements: int, x: torch.Tensor,
+               out: torch.Tensor) -> None:
+    """Launches ``sponge_mma_kernel`` of `lib` (``csrc/sponge_mma.cu``) on
+    CUDA messages into `out`; counted in ``sponge_mma.launches``."""
+    _launch(lib, "anemoi_sponge_mma", x, out, inst.width, num_elements, consts_words(inst).ctypes.data,
+            fragments(inst.field, x.device).data_ptr())
+    sponge_mma.launches += 1
+
+
+sponge_mma.launches = 0
+
+
 def launch_counts() -> dict:
     """The wrappers' launch counts now: "jive", "jive_mma" (the tensor-core
-    Jive kernel), "permutation" (both permutation kernels), "four_lane"
-    (those of them that went to the four-lane kernel) and "sponge"."""
+    Jive kernel), "permutation" (both integer permutation kernels),
+    "four_lane" (those of them that went to the four-lane kernel),
+    "sponge", and "permutation_mma" and "sponge_mma" (the tensor-core
+    permutation and sponge kernels)."""
     return {"jive": jive.launches, "jive_mma": jive_mma.launches, "permutation": permutation.launches,
-            "four_lane": permutation.group_launches, "sponge": sponge.launches}
+            "four_lane": permutation.group_launches, "sponge": sponge.launches,
+            "permutation_mma": permutation_mma.launches, "sponge_mma": sponge_mma.launches}
 
 
 # --------------------------------------------------------------------------
@@ -355,11 +406,39 @@ def mma_library(words: int, defines: tuple = ()) -> _build.Library:
                   "anemoi_jive_mma_consts_words", defines)
     lib = built.cdll
     _declare(lib.anemoi_jive_mma_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
-    _declare(lib.anemoi_jive_mma_frag_words, [], ctypes.c_int)
     _declare(lib.anemoi_mma_check, [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+    _check_fragments("jive_mma.cu", words, lib.anemoi_jive_mma_frag_words)
+    return built
+
+
+def _check_fragments(source: str, words: int, frag_words) -> None:
+    """Raises unless the library's fragment words (``frag_words()``) are
+    those ``mxu_ops`` lays out for `words`-word fields."""
+    _declare(frag_words, [], ctypes.c_int)
     m_tiles, u_tiles = fragment_tiles(words)
-    if lib.anemoi_jive_mma_frag_words() != (m_tiles + u_tiles) * fragment_regs(words) * 32:
-        raise RuntimeError(f"jive_mma.cu and mxu_ops disagree on the fragments of {words}-word fields")
+    if frag_words() != (m_tiles + u_tiles) * fragment_regs(words) * 32:
+        raise RuntimeError(f"{source} and mxu_ops disagree on the fragments of {words}-word fields")
+
+
+@lru_cache(maxsize=None)
+def sponge_mma_library(words: int, defines: tuple = ()) -> _build.Library:
+    """sponge_mma.cu for `words`-word fields, built at first use, its
+    fragment layout checked against ``mxu_ops``; `defines` as
+    ``library``'s."""
+    built = _load(
+        "sponge_mma.cu",
+        words,
+        {
+            "anemoi_permute_mma": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+            "anemoi_sponge_mma": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        },
+        "anemoi_sponge_mma_consts_words",
+        defines,
+    )
+    lib = built.cdll
+    _declare(lib.anemoi_sponge_mma_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
+    _declare(lib.anemoi_sponge_mma_block_threads, [], ctypes.c_int)
+    _check_fragments("sponge_mma.cu", words, lib.anemoi_sponge_mma_frag_words)
     return built
 
 

@@ -5,21 +5,22 @@ were:
 
     python -m anemoi_tpu_torch.sass OTHER_CSRC
 
-builds ``jive.cu``, ``sponge.cu`` and ``jive_mma.cu`` of this package's
-``csrc/`` and of OTHER_CSRC (for example ``csrc/`` of a ``git archive`` of
-the parent commit; a source it lacks is not built) at 8 and 12 words with
-the package's nvcc flags, all at once in a temporary directory, and prints
-for every kernel (``jive_kernel``, ``permute_kernel``,
-``permute_group_kernel``, ``sponge_kernel``, ``jive_mma_kernel``) "same"
-when its PTX and its SASS instructions (opcodes, registers, operands, in
-order) are the same in both trees and "changed" otherwise, with how many
-instructions differ and whether the binary encodings differ too; a kernel
-that only this tree has is "new".  For each ``jive_mma_kernel`` it also
-prints its registers and spills (ptxas) and the instructions of one
-product (``product_mix`` of its innermost loop, a trip of the ladder,
-over the products that trip runs): IMMA, IMAD, shuffles, votes and the
-other integer instructions.  Needs nvcc and cuobjdump (the card's
-machine).
+builds ``jive.cu``, ``sponge.cu``, ``jive_mma.cu`` and ``sponge_mma.cu``
+of this package's ``csrc/`` and of OTHER_CSRC (for example ``csrc/`` of a
+``git archive`` of the parent commit; a source it lacks is not built) at 8
+and 12 words with the package's nvcc flags, all at once in a temporary
+directory, and prints for every kernel (``jive_kernel``,
+``permute_kernel``, ``permute_group_kernel``, ``sponge_kernel``,
+``jive_mma_kernel``, ``permute_mma_kernel``, ``sponge_mma_kernel``)
+"same" when its PTX and its SASS instructions (opcodes, registers,
+operands, in order) are the same in both trees and "changed" otherwise,
+with how many instructions differ and whether the binary encodings differ
+too; a kernel that only this tree has is "new".  For each tensor-core
+kernel (``MMA_KERNELS``) it also prints its registers and spills (ptxas)
+and the instructions of one product (``product_mix`` of its innermost
+loop, a trip of the ladder, over the products that trip runs): IMMA,
+IMAD, shuffles, votes and the other integer instructions.  Needs nvcc and
+cuobjdump (the card's machine).
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ COUNTED = ("LDL", "STL", "SHFL", "VOTE", "IMAD")  # local memory, shuffles, vote
 # what is not integer ALU work in product_mix: the tensor cores, multiply-adds, lane traffic, memory, control
 NOT_ALU = ("IMMA", "IMAD", "SHFL", "VOTE", "LDS", "STS", "LDG", "STG", "LDL", "STL", "LDC", "ULDC", "BRA", "BAR",
            "BSSY", "BSYNC", "WARPSYNC", "EXIT", "NOP", "CALL", "RET")
-SOURCES = ("jive.cu", "sponge.cu", "jive_mma.cu")
+SOURCES = ("jive.cu", "sponge.cu", "jive_mma.cu", "sponge_mma.cu")
+# the tensor-core kernels, by source: their product's reduction runs as mma.sync (IMMA)
+MMA_KERNELS = {"jive_mma.cu": ("jive_mma_kernel",), "sponge_mma.cu": ("permute_mma_kernel", "sponge_mma_kernel")}
 
 
 def kernel_name(mangled: str) -> str:
@@ -178,33 +181,35 @@ def main(argv: list[str]) -> int:
             this, other = built[(0, source, words)], built.get((1, source, words), ({}, {}))
             for name in sorted(this[0], key=kernel_name):
                 print(f"{words} words, {compare(name, this, other)}", flush=True)
-            if source == "jive_mma.cu":
-                print_mma_report(words)
+            if source in MMA_KERNELS:
+                print_mma_report(source, words)
     return 0
 
 
 def mma_report(lib) -> dict[str, dict]:
-    """{jive_mma_kernel<...>: its registers, spill store and load bytes, the
-    whole kernel's ``product_mix`` and one product's (its innermost loop
-    that holds an IMMA, a trip of the ladder, over the trip's one product a
-    column)} of a built ``jive_mma.cu`` library (``_build.Library``)."""
+    """{kernel<...>: its registers, spill store and load bytes, the whole
+    kernel's ``product_mix`` and one product's (its innermost loop that
+    holds an IMMA, a trip of the ladder, over the trip's one product a
+    column)} for each tensor-core kernel of a built ``jive_mma.cu`` or
+    ``sponge_mma.cu`` library (``_build.Library``)."""
     regs = ptxas_table(lib.ptxas)
     out = {}
     for name, lines in functions(disassemble(lib.path)).items():
         kernel = kernel_name(name)
-        if kernel.startswith("jive_mma_kernel"):
-            width = int(kernel.split("<")[1].split(",")[0])
+        if kernel.startswith(sum(MMA_KERNELS.values(), ())):
+            width = int(kernel.split("<")[1].split(",")[0].rstrip(">"))
             r, st, ld = regs[kernel]
             out[kernel] = {"registers": r, "spill_store": st, "spill_load": ld, "whole": product_mix(lines),
                            "product": product_mix(innermost_loop(lines, "IMMA"), products=width // 2)}
     return out
 
 
-def print_mma_report(words: int) -> None:
-    """``mma_report`` of the package's own build at `words` words."""
+def print_mma_report(source: str, words: int) -> None:
+    """``mma_report`` of the package's own build of `source` at `words` words."""
     from .ff import cuda_backend
 
-    for kernel, r in mma_report(cuda_backend.mma_library(words)).items():
+    library = {"jive_mma.cu": cuda_backend.mma_library, "sponge_mma.cu": cuda_backend.sponge_mma_library}[source]
+    for kernel, r in mma_report(library(words)).items():
         print(f"{words} words, {kernel}: {r['registers']} registers, spills {r['spill_store']}/{r['spill_load']} "
               f"bytes; a product: " + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()), flush=True)
 

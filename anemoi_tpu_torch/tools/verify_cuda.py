@@ -8,7 +8,8 @@ the kernel launches it made (a JSON line) and "ALL PASS" (exit 0) or
 
   * for anemoi_2_1 and anemoi_4_3: the permutation at 128 states (the
     four-lane kernel) and at 16,384 (above ``permute_group_max``: the
-    one-thread kernel), and Jive-k at 128 states (k = 2 and 4);
+    one-thread kernel; under an "mxu" name both run the tensor-core
+    kernel), and Jive-k at 128 states (k = 2 and 4);
   * the anemoi_4_3 sponge over 32 messages of E = 7 elements (two rate
     blocks and a tail);
   * the anemoi_2_1 Merkle root over 2^10 leaves, with its levels.
@@ -18,7 +19,8 @@ the sponge, 32 lanes of each other batch, 16 at each end, and 4 nodes of
 every level of the root) and every lane against the native oracle
 (``ff/native.py``, C++ on the host's cores; around it, the sponge's rate
 adds and sigma in Python ints), and checks that the permutation ran the
-kernel ``permute_group_max`` names.  Inputs are canonical
+kernel ``permute_group_max`` names (or, under an "mxu" name, the
+tensor-core one).  Inputs are canonical
 (``limb_ops.random_canonical``, seeded).
 
 Unlike ``verify_tpu.py``, whose root compares the fused kernel with the
@@ -28,10 +30,15 @@ model, not a second root on the CPU: the plain PyTorch version takes about
 for 2^10 leaves.  ``--device cpu`` takes the place of ``--interpret``: the
 same checks on the plain version, at sizes the CPU finishes (16 states, 8
 messages, 2^4 leaves).  ``--mul-impl`` and ``--ladder`` are validated as
-the JAX package validates them.  A ``--mul-impl`` that starts with "mxu"
-(the JAX kernel's product on its matrix unit) runs the Jive checks and the
-root on the tensor-core Jive kernel (``csrc/jive_mma.cu``), whose launches
-the JSON line counts as "jive_mma"; the other names change nothing.
+the JAX package validates them.  The permutation and the sponge checks
+call ``cuda_backend.permutation`` and ``cuda_backend.sponge`` with the
+``--mul-impl`` name, as ``verify_tpu.py`` runs ``permutation_pallas`` and
+``sponge_pallas`` under it.  A name that starts with "mxu" (the JAX
+kernels' product on the TPU's matrix unit, their default) runs every check
+on the tensor-core kernels: Jive and the root on ``csrc/jive_mma.cu``, the
+permutation and the sponge on ``csrc/sponge_mma.cu``, whose launches the
+JSON line counts as "jive_mma", "permutation_mma" and "sponge_mma"; the
+other names change nothing.
 """
 
 from __future__ import annotations
@@ -47,10 +54,11 @@ import torch
 from ..ff import cuda_backend, golden, native
 from ..ff import limb_ops as lo
 from ..ff.cuda_backend import launch_counts
+from ..ff.mxu_ops import selects_mma
 from ..ff.native import canonical_host
 from ..fields.params import FIELD_NAMES, InstanceParams, get_instance
 from ..merkle.tree import MerkleTree, check_levels
-from ..modes.batched import decode_states, jive_compress_batch_fn, sponge_hash_batch_fn
+from ..modes.batched import decode_states, jive_compress_batch_fn
 
 SIZES = {  # states of each permutation, Jive states, sponge messages, root leaves
     "cuda": {"perm": (128, 16384), "jive": 128, "sponge": 32, "root": 1 << 10},
@@ -94,13 +102,16 @@ class FieldCheck:
         W, L = inst.width, inst.field.n_limbs
         x = self.states(inst, W, n)
         before = launch_counts()
-        out = cuda_backend.permutation(inst, x.reshape(W * L, n)).reshape(W, L, n)
-        four_lane = launch_counts()["four_lane"] > before["four_lane"]
-        if self.device.type == "cuda":
+        out = cuda_backend.permutation(inst, x.reshape(W * L, n), self.mul_impl).reshape(W, L, n)
+        after = launch_counts()
+        four_lane = after["four_lane"] > before["four_lane"]
+        if self.device.type == "cpu":
+            kernel, routed = "plain version", True
+        elif selects_mma(self.mul_impl):
+            kernel, routed = "tensor-core kernel", after["permutation_mma"] == before["permutation_mma"] + 1
+        else:
             kernel = "four-lane kernel" if four_lane else "one-thread kernel"
             routed = four_lane == (n <= cuda_backend.permute_group_max(inst.field.kernel_words))
-        else:
-            kernel, routed = "plain version", True
         lanes = ends(n)
         gold, orc = self.held(inst, x, out, lambda s: golden.permutation(inst, s),
                               native.threaded(native.permute_batch_canonical, inst, canonical_host(inst, x)), lanes)
@@ -120,8 +131,9 @@ class FieldCheck:
     def sponge(self) -> bool:
         inst = get_instance(self.field, "anemoi_4_3")
         n = self.sizes["sponge"]
+        L = inst.field.n_limbs
         x = self.states(inst, SPONGE_E, n)
-        out = sponge_hash_batch_fn(inst, SPONGE_E, device=self.device)(x)
+        out = cuda_backend.sponge(inst, SPONGE_E, x.reshape(SPONGE_E * L, n), self.mul_impl).reshape(-1, L, n)
         gold, orc = self.held(inst, x, out, lambda m: golden.hash_field(inst, m),
                               native.host_sponge(inst, canonical_host(inst, x)), list(range(n)))
         return check(f"{inst.qualified_name} sponge (E={SPONGE_E}), {n} messages: golden on all {gold}, native "
@@ -158,7 +170,8 @@ def kernel_launches(words: int, delta: dict) -> dict:
     """Launch counts under the names of ``chip_smoke.py``'s kernels line."""
     w = "_w12" if words == 12 else ""
     return {f"jive{w}": delta["jive"], f"jive_mma{w}": delta["jive_mma"], f"permutation{w}": delta["four_lane"],
-            f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"]}
+            f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"],
+            f"permutation_mma{w}": delta["permutation_mma"], f"sponge_mma{w}": delta["sponge_mma"]}
 
 
 def main(argv=None) -> int:
@@ -167,8 +180,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fields", default="vesta", help="comma-separated field names, or all")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu, the plain version")
     ap.add_argument("--mul-impl", default=None,
-                    help="the JAX package's mul impl: mxu, mxuf, mxus, mxu2 or mxu3 runs the Jive checks and the root "
-                         "on the tensor-core Jive kernel; the others are validated and change nothing")
+                    help="the JAX package's mul impl: mxu, mxuf, mxus, mxu2 or mxu3 runs every check on the tensor-core "
+                         "kernels (jive_mma.cu, sponge_mma.cu); the others are validated and change nothing")
     ap.add_argument("--ladder", default=None, help="validated and ignored: the JAX package's exp ladder")
     args = ap.parse_args(argv)
     try:

@@ -13,8 +13,9 @@ streaming sponge (``BatchedSponge``), for Vesta anemoi_4_3 and anemoi_2_1
 and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
 
   1. the card: its name, and name and power limit from nvidia-smi;
-  2. the builds, all started together: csrc/jive.cu and csrc/sponge.cu with
-     nvcc once for 8 words and once for 12, csrc/microbench.cu, each timed,
+  2. the builds, all started together: csrc/jive.cu, csrc/sponge.cu,
+     csrc/jive_mma.cu and csrc/sponge_mma.cu with nvcc once for 8 words and
+     once for 12, csrc/microbench.cu, each timed,
      with ptxas's report, and the host's byte packer with g++; each Jive,
      permutation and sponge kernel's registers and spills beside the
      earlier kernels' (the sponge kernel's code must not change; a Jive
@@ -157,6 +158,22 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      4), BLS12-381 and BLS12-377 2_1, every lane against ``jive_kernel`` and
      257 (both ends) against the plain version, and the other four 20-limb
      fields' 2_1, every lane against the native oracle;
+ 19. the tensor-core permutation and sponge (``csrc/sponge_mma.cu``,
+     ``mul_impl="mxuf"``; run before 15): their SASS at 8 and 12 words
+     (IMMA in each, or the phase fails; registers, spills, blocks per SM,
+     the instructions of one product); the main path, each word count's run
+     with every launch count set to 0 just before and read just after
+     (``cuda_backend.permutation`` and ``sponge`` with the name: Vesta and
+     BLS12-381 4_3 permutations of 4,096 and 65,536 states, the sponge over
+     4,096 x 10 KB messages of Vesta 4_3 and 2_1 and BLS12-381 4_3; only
+     ``permutation_mma`` and ``sponge_mma`` launches); each timed in turns
+     with the integer kernel the port runs without the name (CUDA events)
+     beside its bound (the IMADs left and the u8 multiply-adds); every lane
+     of each against the integer kernel, the ragged 4,099 states among
+     them and 4,099 messages of rate, 2 rate and rate + 1 elements, and 257
+     lanes at both ends against the plain version; beside those checks,
+     ``python3 -m anemoi_tpu_torch.tools.verify_cuda --mul-impl mxuf``
+     (a process of its own: ALL PASS, the new kernels' launches above 0);
  15. one JSON line of kernels: launches, error, times, bound, with the
      fourth and fifth slices' launches beside; every bound beside the IMAD
      rate that phase 14 measured; the native oracle's seconds.
@@ -172,8 +189,9 @@ package beside this file, it exits non-zero before printing any result.
 For development, ``--phases 6,8`` runs only the phases named, with phases
 1 and 2 (the device, the builds) and what they need (12 needs 11; 15 needs
 all; 17 needs 5): a short run on the card; ``--phases 18`` is the
-tensor-core Jive kernel alone.  Such a run prints no result
-line.  Phases run in the order 1 to 14, 16, 17, 18, 15.
+tensor-core Jive kernel alone, ``--phases 19`` the tensor-core permutation
+and sponge.  Such a run prints no result line.  Phases run in the order 1
+to 14, 16, 17, 18, 19, 15.
 """
 
 from __future__ import annotations
@@ -278,6 +296,10 @@ MMA_FIELDS = ("vesta", "bls12_381", "bls12_377")  # phase 18's full-size Jive, e
 MMA_REPS = 2  # phase 18's calls of each kernel a turn, after a warm-up: two turns each
 # the dense int8 rate of the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W): 1,979 TOPS, two a multiply-add
 INT8_MAC_PER_S = 1979e12 / 2
+MMA_PERMS = (("vesta", "anemoi_4_3"), ("bls12_381", "anemoi_4_3"))  # phase 19: the tensor-core permutation's cases,
+MMA_PERM_NS = (N_MSGS, N_MSGS_FILL)  # at BatchedSponge's batch and a full card; N_CHECK too, untimed
+MMA_SPONGES = (("vesta", "anemoi_4_3"), ("vesta", "anemoi_2_1"), ("bls12_381", "anemoi_4_3"))  # x 4,096 x 10 KB
+MMA_PERM_REPS, MMA_SPONGE_REPS = 3, 1  # phase 19's calls of each kernel a turn, after a warm-up: two turns each
 
 
 def was(key: str, ms: float) -> str:
@@ -295,9 +317,9 @@ def golden_hash_bytes(args) -> list:
     return golden.hash_bytes(get_instance(field, iname), data)
 
 
-ALL_PHASES = frozenset(range(1, 19))
+ALL_PHASES = frozenset(range(1, 20))
 # 12 resumes 11's tree; 15 reports every phase; 17 holds the bench's headline against phase 5's time
-PHASE_NEEDS = {12: {11}, 15: set(range(3, 19)) - {15}, 17: {5}}
+PHASE_NEEDS = {12: {11}, 15: set(range(3, 20)) - {15}, 17: {5}}
 
 
 def run_module(module: str, *args: str) -> subprocess.Popen:
@@ -423,7 +445,8 @@ def main() -> int:
     plain_lanes = {}  # words: the lanes of the 4_3 permutation's plain call, phases 6 and 9
     max_err = dict.fromkeys(["jive", "permutation", "permutation_thread", "sponge", "jive_w12", "permutation_w12",
                              "permutation_thread_w12", "sponge_w12", "sqr_chain", "mad_loop", "jive_mma",
-                             "jive_mma_w12"], 0)
+                             "jive_mma_w12", "permutation_mma", "permutation_mma_w12", "sponge_mma",
+                             "sponge_mma_w12"], 0)
 
     def canonical_states(inst, n):
         """int32 [WIDTH, L, n] random canonical states on the card."""
@@ -473,6 +496,24 @@ def main() -> int:
                 "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
+    def mma_bound(inst, n_perms: int, n_bytes: int) -> dict:
+        """The least time for n_perms permutations of `inst` with the tensor-core product that move n_bytes: the
+        larger of the IMADs left on the integer pipe (each product's bilinear half: 2 NW^2 for a product, NW (NW +
+        1) for a squaring, what microbench's counts keep without the reduction's 2 NW^2 + NW) at imad_per_s, the
+        u8 multiply-adds of the reduction's two products (m: 4 NW x 4 NW; U: 4 NW x (4 NW + 2), the columns the
+        kernels need) at INT8_MAC_PER_S, and the bytes over the card's memory rate."""
+        w = inst.field.kernel_words
+        squarings, products = permutation_work(inst, inv_alpha_chain(inst.field.name))
+        red = 2 * w * w + w
+        imads = squarings * (mb.imads_per_squaring(w) - red) + products * (mb.imads_per_product(w) - red)
+        macs = (squarings + products) * (4 * w * 4 * w + 4 * w * (4 * w + 2))
+        imad_ms, mac_ms = n_perms * imads / imad_per_s * 1e3, n_perms * macs / INT8_MAC_PER_S * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ms = max(imad_ms, mac_ms, bytes_ms)
+        return {"words": w, "imads": imads, "macs": macs, "imad_ms": imad_ms, "mac_ms": mac_ms,
+                "bytes_ms": bytes_ms, "bound_ms": ms, "bound_by": "bytes" if ms == bytes_ms else "operations",
+                "unit": "bytes" if ms == bytes_ms else "IMAD" if ms == imad_ms else "u8 MAC"}
+
     def show_bound(what: str, b: dict, ms: float) -> None:
         w = b["words"]
         print(f"  bound, {what}: per permutation {b['squarings']} squarings x {mb.imads_per_squaring(w)} + "
@@ -490,6 +531,11 @@ def main() -> int:
         which BatchedSponge's 4,096 states run, "permutation_thread" for the
         one-thread one."""
         return ("permutation" if group else "permutation_thread") + ("_w12" if words == 12 else "")
+
+    def mma_key(kind: str, words: int) -> str:
+        """The kernels line's name of a tensor-core kernel, phase 19's: "permutation_mma" or "sponge_mma", with
+        "_w12" at 12 words."""
+        return f"{kind}_mma" + ("_w12" if words == 12 else "")
 
     def ends(n: int):
         """N_PLAIN lanes at both ends of n (all of them when n is smaller)."""
@@ -653,6 +699,8 @@ def main() -> int:
             "microbench.cu": mb.library,
             "jive_mma.cu, 8 words": lambda: cuda_backend.mma_library(8),
             "jive_mma.cu, 12 words": lambda: cuda_backend.mma_library(12),
+            "sponge_mma.cu, 8 words": lambda: cuda_backend.sponge_mma_library(8),
+            "sponge_mma.cu, 12 words": lambda: cuda_backend.sponge_mma_library(12),
         }
         with ThreadPoolExecutor(len(builds) + 1) as pool:  # one compiler process per build, all at once
             jobs = {name: pool.submit(fn) for name, fn in builds.items()}
@@ -663,6 +711,7 @@ def main() -> int:
         lib, sponge_lib = built["jive.cu, 8 words"], built["sponge.cu, 8 words"]
         lib12, sponge_lib12 = built["jive.cu, 12 words"], built["sponge.cu, 12 words"]
         mma_libs = {8: built["jive_mma.cu, 8 words"], 12: built["jive_mma.cu, 12 words"]}  # phase 18 reads them
+        sponge_mma_libs = {w: built[f"sponge_mma.cu, {w} words"] for w in (8, 12)}  # phase 19 reads them
         for name, b in built.items():
             print(f"build: {name}: nvcc {b.build_seconds if b.build_seconds is not None else 'not run (built earlier)'} "
                   f"s, {b.path.name}", flush=True)
@@ -1637,24 +1686,6 @@ def main() -> int:
               f"root ({since18()})", flush=True)
         del leaves, digests
 
-        def mma_bound(inst, n: int) -> dict:
-            """The least time for n Jive permutations with the tensor-core product: the larger of the IMADs left
-            on the integer pipe (each product's bilinear half: 2 NW^2 for a product, NW (NW + 1) for a squaring,
-            what microbench's counts keep without the reduction's 2 NW^2 + NW) at imad_per_s, and the u8
-            multiply-adds of the reduction's two products (m: 4 NW x 4 NW; U: 4 NW x (4 NW + 2), the columns the
-            kernel needs) at INT8_MAC_PER_S; and the bytes."""
-            w = inst.field.kernel_words
-            squarings, products = permutation_work(inst, inv_alpha_chain(inst.field.name))
-            red = 2 * w * w + w
-            imads = squarings * (mb.imads_per_squaring(w) - red) + products * (mb.imads_per_product(w) - red)
-            macs = (squarings + products) * (4 * w * 4 * w + 4 * w * (4 * w + 2))
-            imad_ms, mac_ms = n * imads / imad_per_s * 1e3, n * macs / INT8_MAC_PER_S * 1e3
-            bytes_ms = n * (inst.width + inst.width // 2) * inst.field.n_limbs * 4 / HBM_BYTES_PER_S * 1e3
-            ms = max(imad_ms, mac_ms, bytes_ms)
-            return {"words": w, "imads": imads, "macs": macs, "imad_ms": imad_ms, "mac_ms": mac_ms,
-                    "bytes_ms": bytes_ms, "bound_ms": ms, "bound_by": "bytes" if ms == bytes_ms else "operations",
-                    "unit": "bytes" if ms == bytes_ms else "IMAD" if ms == imad_ms else "u8 MAC"}
-
         # full size, the card to itself: each field's 2_1 Jive over N_FULL states, the tensor-core kernel and
         # jive_kernel in turns (CUDA events); the 12-word path's launch counted alone
         outs = {}
@@ -1672,7 +1703,8 @@ def main() -> int:
             t_mma2 = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x, MMA_IMPL), MMA_REPS)
             t_jive2 = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x), MMA_REPS)
             mma["ms"][field], mma["jive_ms"][field] = (t_mma + t_mma2) / 2, (t_jive + t_jive2) / 2
-            b = mma["bound"][field] = mma_bound(inst, N_FULL)
+            b = mma["bound"][field] = mma_bound(inst, N_FULL, N_FULL * (inst.width + inst.width // 2)
+                                                * inst.field.n_limbs * 4)
             print(f"  {field}/anemoi_2_1 Jive over {N_FULL} states ({words} words; {smi}; CUDA events, {MMA_REPS} "
                   f"calls after a warm-up, in turns jive_kernel, mma, mma, jive_kernel): tensor-core kernel "
                   f"{t_mma:.3f} and {t_mma2:.3f} ms, jive_kernel {t_jive:.3f} and {t_jive2:.3f} ms "
@@ -1739,6 +1771,184 @@ def main() -> int:
         print(f"  the bench (python3 -m anemoi_tpu_torch.bench --impl {MMA_IMPL}, beside this phase's checks): "
               f"headline {doc['value']} hashes/s, {len(runs)} runs with their parity ok, {mma['bench_launches']} "
               f"jive_mma launches in all ({since18()})", flush=True)
+
+    # 19 --------------------------------------------------------------------
+    if run(19):
+        phase(f"19 the tensor-core permutation and sponge (mul_impl {MMA_IMPL!r}): SASS, the main path, full size "
+              f"beside the integer kernels, holds, the verifier")
+        t19 = time.perf_counter()
+        since19 = lambda: f"{time.perf_counter() - t19:.1f} s into the phase"
+        mma19 = {"ms": {}, "int_ms": {}, "bound": {}, "perm_plain": {}, "sponge_plain_ms": {}, "launches": {}}
+        for words, b in sponge_mma_libs.items():
+            for kernel, r in sorted(sass.mma_report(b).items()):
+                width = int(kernel.split("<")[1].rstrip(">"))
+                print(f"  {words} words, {kernel}: {r['registers']} registers, spills {r['spill_store']}/"
+                      f"{r['spill_load']} bytes, "
+                      f"{b.cdll.anemoi_sponge_mma_blocks_per_sm(kernel.startswith('sponge'), width)} blocks of "
+                      f"{b.cdll.anemoi_sponge_mma_block_threads()} threads per SM; SASS "
+                      f"{r['whole']['instructions']:g} instructions, IMMA {r['whole']['IMMA']:g}; a product (the "
+                      f"ladder's trip over its {width // 2}): " + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()),
+                      flush=True)
+                if not r["whole"]["IMMA"]:
+                    fail(f"{kernel} at {words} words has no IMMA instruction")
+
+        def zero_counts() -> None:
+            for counter in (cuda_backend.jive, cuda_backend.jive_mma, cuda_backend.permutation, cuda_backend.sponge,
+                            cuda_backend.permutation_mma, cuda_backend.sponge_mma):
+                counter.launches = 0
+            cuda_backend.permutation.group_launches = 0
+
+        def in_turns(kernel, mma_kernel, reps: int) -> tuple[float, float]:
+            """The two calls timed with CUDA events in turns kernel, mma, mma, kernel, `reps` calls a turn, after
+            one warm-up call of each: the mean ms of each one's two turns."""
+            kernel(), mma_kernel()
+            ms = {kernel: [], mma_kernel: []}
+            for fn in (kernel, mma_kernel, mma_kernel, kernel):
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                ms[fn].append(start.elapsed_time(end) / reps)
+            return sum(ms[kernel]) / 2, sum(ms[mma_kernel]) / 2
+
+        # full-size inputs made on the card: the states of each permutation (N_MSGS is a prefix of N_MSGS_FILL,
+        # and so is N_CHECK), 4,096 messages of 10 KB for each sponge
+        perm_in, sponge_in = {}, {}
+        for field, iname in MMA_PERMS:
+            inst = get_instance(field, iname)
+            x = random_on_card(inst, inst.width, N_MSGS_FILL, args.seed + 19).reshape(-1, N_MSGS_FILL)
+            perm_in[field] = {n: x[:, :n].contiguous() for n in (*MMA_PERM_NS, N_CHECK)}
+        for field, iname in MMA_SPONGES:
+            inst = get_instance(field, iname)
+            E = -(-MSG_BYTES // inst.field.byte_chunk)
+            sponge_in[(field, iname)] = E, random_on_card(inst, E, N_MSGS, args.seed + 20).reshape(-1, N_MSGS)
+        torch.cuda.synchronize()
+
+        # the main path, each word count's run with every count set to 0 just before and read just after: the
+        # permutation at each size and the sponge over 4,096 x 10 KB, through cuda_backend with the name
+        outs = {}
+        for words in (8, 12):
+            perms = [(c, n) for c in MMA_PERMS for n in MMA_PERM_NS if get_instance(*c).field.kernel_words == words]
+            sponges = [c for c in MMA_SPONGES if get_instance(*c).field.kernel_words == words]
+            zero_counts()
+            for (field, iname), n in perms:
+                outs[(field, n)] = cuda_backend.permutation(get_instance(field, iname), perm_in[field][n], MMA_IMPL)
+            for case in sponges:
+                E, m = sponge_in[case]
+                outs[case] = cuda_backend.sponge(get_instance(*case), E, m, MMA_IMPL)
+            torch.cuda.synchronize()
+            counts = cuda_backend.launch_counts()
+            mma19["launches"][words] = counts
+            print(f"  main path, {words} words, mul_impl {MMA_IMPL!r}: the permutation of "
+                  + ", ".join(f"{c[0]}/{c[1]} {n}" for c, n in perms) + " states and the sponge over " + ", ".join(
+                      f"{f}/{i}" for f, i in sponges) + f" x {N_MSGS} x {MSG_BYTES} bytes: launches {counts}",
+                  flush=True)
+            others = {k: v for k, v in counts.items() if k not in ("permutation_mma", "sponge_mma") and v}
+            if counts["permutation_mma"] != len(perms) or counts["sponge_mma"] != len(sponges) or others:
+                fail(f"the mxu path at {words} words took launches {counts}")
+        print(f"  ({since19()})", flush=True)
+
+        # in turns with the integer kernel the port runs without the name, the card to itself
+        for field, iname in MMA_PERMS:
+            inst = get_instance(field, iname)
+            words, L = inst.field.kernel_words, inst.field.n_limbs
+            for n in MMA_PERM_NS:
+                x, group = perm_in[field][n], n <= crossover[words]
+                t_int, t_mma = in_turns(lambda: cuda_backend.permutation_with(inst, x, group),
+                                        lambda: cuda_backend.permutation(inst, x, MMA_IMPL), MMA_PERM_REPS)
+                key = (field, n)
+                mma19["ms"][key], mma19["int_ms"][key] = t_mma, t_int
+                b = mma19["bound"][key] = mma_bound(inst, n, n * 2 * inst.width * L * 4)
+                print(f"  {field}/{iname} permutation, {n} states ({words} words; {smi}; CUDA events, "
+                      f"{MMA_PERM_REPS} calls a turn after a warm-up, in turns integer, mma, mma, integer): "
+                      f"tensor-core kernel {t_mma:.3f} ms, {'four-lane' if group else 'one-thread'} kernel "
+                      f"{t_int:.3f} ms ({t_int / t_mma:.3f}x); bound {b['bound_ms']:.3f} ms by {b['unit']} "
+                      f"({b['imads']} IMADs left a permutation, {b['imad_ms']:.3f} ms; {b['macs']} u8 MACs, "
+                      f"{b['mac_ms']:.3f} ms; bytes {b['bytes_ms']:.4f} ms): kernel at {b['bound_ms'] / t_mma:.1%} "
+                      f"of it ({since19()})", flush=True)
+        for case in MMA_SPONGES:
+            inst = get_instance(*case)
+            E, m = sponge_in[case]
+            L, perms = inst.field.n_limbs, -(-E // inst.rate)
+            t_int, t_mma = in_turns(lambda: cuda_backend.sponge(inst, E, m),
+                                    lambda: cuda_backend.sponge(inst, E, m, MMA_IMPL), MMA_SPONGE_REPS)
+            mma19["ms"][case], mma19["int_ms"][case] = t_mma, t_int
+            b = mma19["bound"][case] = mma_bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
+            print(f"  {case[0]}/{case[1]} sponge, {N_MSGS} messages of {E} elements ({perms} permutations each; "
+                  f"{inst.field.kernel_words} words; {smi}; CUDA events, {MMA_SPONGE_REPS} call a turn after a "
+                  f"warm-up, in turns): tensor-core kernel {t_mma:.3f} ms, sponge_kernel {t_int:.3f} ms "
+                  f"({t_int / t_mma:.3f}x); bound {b['bound_ms']:.3f} ms by {b['unit']} ({b['imad_ms']:.3f} ms of "
+                  f"IMADs, {b['mac_ms']:.3f} ms of u8 MACs): kernel at {b['bound_ms'] / t_mma:.1%} of it "
+                  f"({since19()})", flush=True)
+
+        # the verifier with the name, a process of its own, beside this process's checks
+        verify_mma = run_module("anemoi_tpu_torch.tools.verify_cuda", "--mul-impl", MMA_IMPL, "--fields",
+                                "vesta,bls12_381")
+        try:
+            # every lane against the integer kernel (phases 6, 8 and 13 hold it against the native oracle), the
+            # ragged N_CHECK among them; N_PLAIN lanes at both ends of each N against the plain version
+            for field, iname in MMA_PERMS:
+                inst = get_instance(field, iname)
+                key = mma_key("permutation", inst.field.kernel_words)
+                top = crossover[inst.field.kernel_words]
+                outs[(field, N_CHECK)] = cuda_backend.permutation(inst, perm_in[field][N_CHECK], MMA_IMPL)
+                ns = (*MMA_PERM_NS, N_CHECK)
+                for n in ns:
+                    held(outs[(field, n)], cuda_backend.permutation_with(inst, perm_in[field][n], n <= top),
+                         f"{field}/{iname} permutation, {n} states, {MMA_IMPL}, against the integer kernel", key)
+                cols = torch.cat([ends(n) for n in ns]).unique()
+                x = perm_in[field][N_MSGS_FILL]
+                plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, cols.to(dev)]
+                                                                                      .contiguous()))
+                mma19["perm_plain"][field] = plain_ms, len(cols)
+                at = {int(c): i for i, c in enumerate(cols)}
+                for n in ns:
+                    c = ends(n)
+                    held(outs[(field, n)][:, c.to(dev)], plain[:, torch.tensor([at[int(i)] for i in c], device=dev)],
+                         f"{field}/{iname} permutation, {n} states, {MMA_IMPL}, against the plain version", key)
+                print(f"  {field}/{iname} permutation at {', '.join(map(str, ns))} states: every lane equal to the "
+                      f"integer kernel's, {N_PLAIN} at both ends of each to the plain version ({len(cols)} lanes, "
+                      f"{plain_ms / 1e3:.2f} s) ({since19()})", flush=True)
+            for case in MMA_SPONGES:
+                inst = get_instance(*case)
+                key = mma_key("sponge", inst.field.kernel_words)
+                E, m = sponge_in[case]
+                held(outs[case], cuda_backend.sponge(inst, E, m), f"{case[0]}/{case[1]} sponge, {N_MSGS} x "
+                     f"{MSG_BYTES} bytes, {MMA_IMPL}, against sponge_kernel", key)
+                # a ragged N_CHECK at E = rate (sigma not added), 2 rate and rate + 1 (a tail), the last also on
+                # N_PLAIN messages at both ends against the plain version, which takes a second a permutation
+                r, L = inst.rate, inst.field.n_limbs
+                ragged = random_on_card(inst, 2 * r, N_CHECK, args.seed + 21).reshape(-1, N_CHECK)
+                sizes = tuple(dict.fromkeys((r, 2 * r, r + 1)))  # r + 1 last: its output meets the plain version
+                for e in sizes:
+                    x = ragged[:e * L].contiguous()
+                    out = cuda_backend.sponge(inst, e, x, MMA_IMPL)
+                    held(out, cuda_backend.sponge(inst, e, x), f"{case[0]}/{case[1]} sponge, {N_CHECK} messages "
+                         f"of {e}, against sponge_kernel", key)
+                plain_ms, plain = host_time_ms(lambda: cuda_backend.sponge_plain(inst, r + 1, x[:, lanes]
+                                                                                  .contiguous()))
+                held(out[:, lanes], plain, f"{case[0]}/{case[1]} sponge, {N_PLAIN} of {N_CHECK} messages of {r + 1}, "
+                     f"against the plain version", key)
+                mma19["sponge_plain_ms"][case] = plain_ms
+                print(f"  {case[0]}/{case[1]} sponge: every lane of {N_MSGS} x {E} elements equal to sponge_kernel's; "
+                      f"{N_CHECK} messages of {', '.join(map(str, sizes))} elements equal to sponge_kernel's, {N_PLAIN} "
+                      f"at both ends of the last to the plain version ({plain_ms / 1e3:.2f} s) ({since19()})",
+                      flush=True)
+            lines = module_result(verify_mma, f"verify_cuda --mul-impl {MMA_IMPL}", timeout=600)
+        finally:
+            verify_mma.kill()
+            verify_mma.wait()
+        reported = json.loads([line for line in lines if line.startswith("launches: ")][-1].split(": ", 1)[1])
+        mma19["verify_launches"] = reported
+        if not lines[-1].endswith("ALL PASS") or not all(reported[k] > 0 for k in (
+                "permutation_mma", "sponge_mma", "permutation_mma_w12", "sponge_mma_w12")):
+            fail(f"verify_cuda --mul-impl {MMA_IMPL}: {lines[-1]!r}, launches {reported}")
+        print(f"  python3 -m anemoi_tpu_torch.tools.verify_cuda --mul-impl {MMA_IMPL} --fields vesta,bls12_381 (a "
+              f"process, beside these checks): {lines[-1]}; launches {reported} ({since19()})", flush=True)
+        del perm_in, sponge_in, outs
 
     # 15 --------------------------------------------------------------------
     if run(15):
@@ -1852,6 +2062,33 @@ def main() -> int:
                   ms_bls12_377=mma["ms"]["bls12_377"], jive_kernel_ms_bls12_377=mma["jive_ms"]["bls12_377"],
                   bound_ms_bls12_377=mma["bound"]["bls12_377"]["bound_ms"], plain_lanes=N_PLAIN,
                   plain_instance="bls12_381/anemoi_2_1", oracle_lanes=N_ORACLE_FULL, build_s=mma_libs[12].build_seconds),
+            *(entry(mma_key("permutation", words), "anemoi_tpu_torch/csrc/sponge_mma.cu",
+                    "anemoi_tpu/ff/pallas_backend.py:430", mma19["launches"][words]["permutation_mma"],
+                    mma19["ms"][(field, N_MSGS)], mma19["perm_plain"][field][0], mma19["bound"][(field, N_MSGS)],
+                    words=words, mul_impl=MMA_IMPL, kernel="permute_mma_kernel", instance=f"{field}/anemoi_4_3",
+                    lanes=N_MSGS, int_kernel="permute_group_kernel", int_kernel_ms=mma19["int_ms"][(field, N_MSGS)],
+                    bound_unit=mma19["bound"][(field, N_MSGS)]["unit"],
+                    ms_65536=mma19["ms"][(field, N_MSGS_FILL)],
+                    int_kernel_ms_65536=mma19["int_ms"][(field, N_MSGS_FILL)],
+                    bound_ms_65536=mma19["bound"][(field, N_MSGS_FILL)]["bound_ms"],
+                    plain_lanes=mma19["perm_plain"][field][1],
+                    verify_launches=mma19["verify_launches"][mma_key("permutation", words)],
+                    build_s=sponge_mma_libs[words].build_seconds)
+              for field, words in (("vesta", 8), ("bls12_381", 12))),
+            *(entry(mma_key("sponge", words), "anemoi_tpu_torch/csrc/sponge_mma.cu",
+                    "anemoi_tpu/ff/pallas_backend.py:610", mma19["launches"][words]["sponge_mma"],
+                    mma19["ms"][(field, "anemoi_4_3")], mma19["sponge_plain_ms"][(field, "anemoi_4_3")],
+                    mma19["bound"][(field, "anemoi_4_3")], words=words, mul_impl=MMA_IMPL, instance=f"{field}/anemoi_4_3",
+                    messages=N_MSGS, elements=-(-MSG_BYTES // get_instance(field, "anemoi_4_3").field.byte_chunk),
+                    int_kernel="sponge_kernel", int_kernel_ms=mma19["int_ms"][(field, "anemoi_4_3")],
+                    bound_unit=mma19["bound"][(field, "anemoi_4_3")]["unit"], plain_messages=N_PLAIN,
+                    plain_elements=get_instance(field, "anemoi_4_3").rate + 1,
+                    verify_launches=mma19["verify_launches"][mma_key("sponge", words)],
+                    build_s=sponge_mma_libs[words].build_seconds,
+                    **({"ms_2_1": mma19["ms"][("vesta", "anemoi_2_1")],
+                        "int_kernel_ms_2_1": mma19["int_ms"][("vesta", "anemoi_2_1")],
+                        "bound_ms_2_1": mma19["bound"][("vesta", "anemoi_2_1")]["bound_ms"]} if words == 8 else {}))
+              for field, words in (("vesta", 8), ("bls12_381", 12))),
             entry("sqr_chain", "anemoi_tpu_torch/csrc/microbench.cu", "tools/mxu_prototype.py:110",
                   mb_launches["sqr_chain"], chain_bls["ms2"], chain_plain_ms["bls12_381"], ops(chain_bound_ms),
                   instance="bls12_381", lanes=MB_LANES, squarings=CHAIN_TRIPS[1], plain_lanes=8, plain_squarings=8,

@@ -97,19 +97,25 @@ void t_jive(int32_t* out, const int32_t* in, long long n, int width, int k, int 
 N_PAIRS = 10_000
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_shim(tmp_path_factory, name: str, shim: str) -> ctypes.CDLL:
+    """A shim of csrc/ sources, built with g++ into a temporary directory
+    and loaded; skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
-    d = tmp_path_factory.mktemp("field32_mma")
-    (d / "shim.cpp").write_text(_SHIM)
-    so = d / "libfield32_mma.so"
+    d = tmp_path_factory.mktemp(name)
+    (d / "shim.cpp").write_text(shim)
+    so = d / f"lib{name}.so"
     subprocess.run(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(CSRC), "-o", str(so), str(d / "shim.cpp")],
         check=True, capture_output=True,
     )
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    lib = build_shim(tmp_path_factory, "field32_mma", _SHIM)
     lib.t_jive.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return lib

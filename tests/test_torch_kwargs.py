@@ -7,8 +7,13 @@ Tolerance: exact.  Every call the port used to reject with a TypeError
 outputs, which are its golden model's (``anemoi_tpu.ff.golden``): names
 change no output.  A ``mul_impl`` or ``ladder`` name that the JAX package
 rejects (``anemoi_tpu.ff.limb_ops.field_consts``) raises ValueError in
-the port's ``MerkleTree`` too.
+the port's ``MerkleTree`` too, and in ``cuda_backend``'s ``jive``,
+``permutation`` and ``sponge``, which route an "mxu" name on the card to
+the tensor-core kernels; the verifier hands its ``--mul-impl`` to the
+permutation and the sponge as ``verify_tpu.py`` does.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -172,3 +177,82 @@ def test_cuda_tensors_with_mxu_go_to_the_tensor_core_kernel(monkeypatch):
         with pytest.raises(RuntimeError, match="no kernel library"):
             cuda_backend.jive(inst, 2, fake(inst.width * inst.field.n_limbs), impl)
     assert asked == [("jive_mma.cu", 8), ("jive.cu", 8), ("jive_mma.cu", 12), ("jive.cu", 8)]
+
+
+@pytest.mark.parametrize("mul_impl", [None, *lo.MUL_IMPLS, "cios7"])
+def test_permutation_and_sponge_take_every_mul_impl(mul_impl, oracle_plain):  # noqa: F811
+    """cuda_backend.permutation and sponge take every name the JAX package
+    takes; on the CPU each goes to the plain version (here the native
+    oracle) and gives the golden model's outputs."""
+    inst = get_instance("vesta", "anemoi_4_3")
+    ref = _ref("vesta", "anemoi_4_3")
+    states = _states(inst, 3, 17)
+    x = bm.encode_states(inst, states, device="cpu").reshape(inst.width * inst.field.n_limbs, 3)
+    got = bm.decode_states(inst, cuda_backend.permutation(inst, x, mul_impl).reshape(inst.width, -1, 3))
+    assert got == [jgolden.permutation(ref, s) for s in states]
+    msgs = _states(inst, 2, 18)  # four elements each: a block and a tail
+    m = bm.encode_states(inst, msgs, device="cpu").reshape(inst.width * inst.field.n_limbs, 2)
+    digests = lo.decode_ints(cuda_backend.sponge(inst, inst.width, m, mul_impl), inst.field)
+    assert digests == [jgolden.hash_field(ref, msg)[0] for msg in msgs]
+
+
+def test_rejected_mul_impl_in_permutation_and_sponge():
+    inst = get_instance("vesta", "anemoi_4_3")
+    x = torch.zeros(inst.width * inst.field.n_limbs, 1, dtype=torch.int32)
+    for bad in ("mxq", "karatsuba"):
+        with pytest.raises(ValueError):
+            cuda_backend.permutation(inst, x, bad)
+        with pytest.raises(ValueError):
+            cuda_backend.sponge(inst, inst.width, x, bad)
+
+
+def test_cuda_tensors_with_mxu_go_to_the_tensor_core_permutation_and_sponge(monkeypatch):
+    """A CUDA tensor with an "mxu" name asks for sponge_mma.cu's library of
+    its word count, any other name for sponge.cu's; neither falls back to
+    the plain path (here, with no library to load, both raise)."""
+    for plain in ("permutation_plain", "sponge_plain"):
+        monkeypatch.setattr(cuda_backend, plain, lambda *a: pytest.fail("plain path taken"))
+    asked = []
+
+    def no_library(source):
+        def load(words):
+            asked.append((source, words))
+            raise RuntimeError("no kernel library here")
+        return load
+
+    monkeypatch.setattr(cuda_backend, "sponge_library", no_library("sponge.cu"))
+    monkeypatch.setattr(cuda_backend, "sponge_mma_library", no_library("sponge_mma.cu"))
+    fake = lambda rows: torch.zeros(rows, 2, dtype=torch.int32).as_subclass(_FakeCudaTensor)
+    for inst, impl in [(get_instance("vesta", "anemoi_4_3"), "mxuf"), (get_instance("vesta", "anemoi_4_3"), None),
+                       (get_instance("bls12_381", "anemoi_2_1"), "mxu3"), (get_instance("vesta", "anemoi_2_1"), "cios")]:
+        rows = inst.width * inst.field.n_limbs
+        with pytest.raises(RuntimeError, match="no kernel library"):
+            cuda_backend.permutation(inst, fake(rows), impl)
+        with pytest.raises(RuntimeError, match="no kernel library"):
+            cuda_backend.sponge(inst, inst.width, fake(rows), impl)
+    assert asked == [("sponge_mma.cu", 8)] * 2 + [("sponge.cu", 8)] * 2 + [("sponge_mma.cu", 12)] * 2 + [
+        ("sponge.cu", 8)] * 2
+
+
+@pytest.mark.parametrize("mul_impl", ["mxuf", "cios2"])
+def test_verifier_passes_mul_impl_to_permutation_and_sponge(mul_impl, oracle_plain, monkeypatch, capsys):  # noqa: F811
+    """verify_cuda --mul-impl hands its name to every permutation and sponge
+    call, as verify_tpu.py runs permutation_pallas and sponge_pallas under
+    it."""
+    calls = []
+
+    def recording(name):
+        real = getattr(cuda_backend, name)
+
+        @functools.wraps(real)  # with its launch counters, which launch_counts reads
+        def call(*args):
+            calls.append((name, args[-1]))
+            return real(*args)
+        return call
+
+    for name in ("permutation", "sponge"):
+        monkeypatch.setattr(cuda_backend, name, recording(name))
+    assert verify_cuda.main(["--device", "cpu", "--fields", "vesta", "--mul-impl", mul_impl]) == 0
+    assert capsys.readouterr().out.strip().endswith("ALL PASS")
+    assert sorted(set(calls)) == [("permutation", mul_impl), ("sponge", mul_impl)]
+    assert len(calls) == 3  # the permutation of 2_1 and 4_3, the sponge

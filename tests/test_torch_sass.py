@@ -116,6 +116,24 @@ def test_bounds_sweep_sets_the_sources_constants(source):
     assert timed and all(k[2] in bounds_sweep.MACROS[source] and k[1].split("<")[0] in text for k in timed)
 
 
+@pytest.mark.parametrize("source", ["jive_mma.cu", "sponge_mma.cu"])
+def test_bounds_sweep_sets_the_mma_sources_constants(source):
+    """As for the integer sources: every constant the sweep sets by -D in a
+    tensor-core source is one that a -D overrides and that bounds a kernel
+    the sweep times, and so is each block shape it builds."""
+    from anemoi_tpu_torch import _build, bounds_sweep
+
+    text = (_build.CSRC / source).read_text()
+    bounds = text[text.index("__launch_bounds__(MMA_BLOCK, "):]
+    for macro in bounds_sweep.MACROS[source]:
+        assert f"#ifndef {macro}\n#define {macro} " in text and macro in bounds
+    for macro, _ in bounds_sweep.SHAPES.get(source, ()):
+        assert f"#ifndef {macro}\n#define {macro} " in text
+    timed = [k for k in bounds_sweep.KERNELS if k[0] == source]
+    assert timed and all(k[2] in bounds_sweep.MACROS[source] and k[1].split("<")[0] in text for k in timed)
+    assert set(sass.MMA_KERNELS[source]) == {k[1].split("<")[0] for k in timed}
+
+
 def test_innermost_loop_holding_and_product_mix():
     """With `holding`, the shortest loop that holds that opcode (the ladder's
     trip, not a copy loop); product_mix counts its instructions by kind,
