@@ -12,7 +12,9 @@ count.  Each is the fastest value without spills of those this sweep
 measures.  For each value, the sources are built at 8 and 12 words with
 each of their constants set to it by ``-D``, 16 builds at once, beside the
 libraries as shipped; ``sponge_mma.cu`` is also built with blocks of 2 and
-4 warps (``MMA_BLOCK_WARPS``) and its shipped bounds.  Then each kernel's
+4 warps (``MMA_BLOCK_WARPS``) and ``jive_mma.cu`` with blocks of 1 and 2
+(``JIVE_MMA_BLOCK_WARPS``; it ships 4), each with its shipped bounds
+(counted in 128-thread blocks, as in ``sponge_mma.cu``).  Then each kernel's
 registers and spills (ptxas) and resident blocks per SM are read, and it
 is timed with CUDA events at its main path's size on random canonical
 states or messages made on the card, its output held bit for bit against
@@ -58,7 +60,8 @@ MACROS = {"jive.cu": ("JIVE2_MIN_BLOCKS", "JIVE4_MIN_BLOCKS"),
           "jive_mma.cu": ("JIVE_MMA2_MIN_BLOCKS", "JIVE_MMA4_MIN_BLOCKS"),
           "sponge_mma.cu": ("PERMUTE_MMA_MIN_BLOCKS", "SPONGE_MMA_MIN_BLOCKS")}
 # further builds of a source with its shipped bounds: (macro, value)
-SHAPES = {"sponge_mma.cu": (("MMA_BLOCK_WARPS", 2), ("MMA_BLOCK_WARPS", 4))}
+SHAPES = {"sponge_mma.cu": (("MMA_BLOCK_WARPS", 2), ("MMA_BLOCK_WARPS", 4)),
+          "jive_mma.cu": (("JIVE_MMA_BLOCK_WARPS", 1), ("JIVE_MMA_BLOCK_WARPS", 2))}
 FIELDS = {8: "vesta", 12: "bls12_381"}
 # (source, kernel as ptxas names it, the macro that bounds it, instance, k or the permutation kernel, states);
 # sponge_mma_kernel's fifth field is None: its E is a 10 KB message's elements

@@ -7,16 +7,18 @@
 // held whole by one thread (ThreadArith over field32.cuh: the Jive kernel
 // and the one-thread permutation kernel), word-sliced over a group of four
 // lanes (GroupArith over field32_group.cuh: the sponge kernel and the
-// four-lane permutation kernel), or word-sliced so with two states a group
+// four-lane permutation kernel), word-sliced so with two states a group
 // and the reduction on the tensor cores (MmaArith over field32_mma.cuh: the
-// tensor-core Jive kernel); the body is written once over the three.
+// tensor-core permutation and sponge kernels), or whole in one thread with
+// the reduction on the tensor cores (MmaThreadArith over field32_mma.cuh:
+// the tensor-core Jive kernel); the body is written once over the four.
 // Rounds: ARK, MDS (1 or 2 columns), open Flystel; then a final MDS.
-// x^(1/alpha) is a 4-bit sliding window under ThreadArith (Vesta: 253
-// squarings and 63 products, table included; BLS12-381: 379 and 89) and a
-// binary ladder under GroupArith and MmaArith (253 and 124; 380 and 193); the
-// reference's addition chains have 293 and 454 operations, and the result
-// is the same canonical value.  Round and exponent loops stay rolled
-// (#pragma unroll 1), which keeps the build to seconds.
+// x^(1/alpha) is a 4-bit sliding window under ThreadArith and MmaThreadArith
+// (Vesta: 253 squarings and 63 products, table included; BLS12-381: 379 and
+// 89) and a binary ladder under GroupArith and MmaArith (253 and 124; 380
+// and 193); the reference's addition chains have 293 and 454 operations,
+// and the result is the same canonical value.  Round and exponent loops
+// stay rolled (#pragma unroll 1), which keeps the build to seconds.
 //
 // Constants (field words, round constants, exponent bits, rounds) arrive
 // in one struct passed to the kernels by value; one instantiation per
@@ -262,6 +264,95 @@ struct MmaArith {
     G32_MEMBER const uint32_t* delta() const { return c.delta; }
 };
 
+// A warp holds 32 states, one a thread, each element whole in its thread
+// (field32_mma.cuh's one-state-a-thread product, warp policy M): the Jive
+// kernel of jive_mma.cu.  Elem is the held threads' NW words (M::T threads:
+// one on the card, the whole warp on the host).  Adds and subtracts are
+// field32.cuh's, in each thread; a product is the thread's bilinear half
+// (mt_mul_wide, or mt_sqr_wide for a squaring) and the warp's reduction on
+// the tensor cores (mt_mont_reduce; frag holds the constants' fragments,
+// rows the warp's scratch, both in shared memory on the card).  Not
+// LOCKSTEP: columns run one after the other and x^(1/alpha) is the window,
+// whose branches read only the exponent, the same in every thread, so every
+// lane reaches every mma.  Word j of window entry e of held thread i is at
+// tab[(e * NW + j) * stride + i].
+template <int NW, class M>
+struct MmaThreadArith {
+    static constexpr int T = M::T;
+    using Elem = uint32_t[T][NW];
+    using Wide = uint32_t[T][2 * NW];
+    static constexpr bool LOCKSTEP = false;
+    const AnemoiConsts<NW>& c;
+    const uint32_t* frag;
+    uint32_t* rows;
+    uint32_t* tab;
+    int stride;
+    G32_MEMBER void add(Elem r, const Elem a, const Elem b) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i) f32_add<NW>(r[i], a[i], b[i], c.p);
+    }
+    G32_MEMBER void add(Elem r, const Elem a, const uint32_t k[NW]) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i) f32_add<NW>(r[i], a[i], k, c.p);
+    }
+    G32_MEMBER void sub(Elem r, const Elem a, const Elem b) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i) f32_sub<NW>(r[i], a[i], b[i], c.p);
+    }
+    G32_MEMBER void copy(Elem r, const Elem a) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i) f32_copy<NW>(r[i], a[i]);
+    }
+    G32_MEMBER void reduce(Elem r, const Wide t) const { mt_mont_reduce<NW, M>(r, t, c.p, frag, rows); }
+    // r = a * k for words k the same in every thread (a constant)
+    G32_MEMBER void mul_k(Elem r, const Elem a, const uint32_t k[NW]) const {
+        Wide t;
+#pragma unroll
+        for (int i = 0; i < T; ++i) mt_mul_wide<NW>(t[i], a[i], k, 1);
+        reduce(r, t);
+    }
+    G32_MEMBER void sqr(Elem r, const Elem a) const {
+        Wide t;
+#pragma unroll
+        for (int i = 0; i < T; ++i) mt_sqr_wide<NW>(t[i], a[i]);
+        reduce(r, t);
+    }
+    G32_MEMBER void mul_g(Elem r, const Elem a) const { mul_k(r, a, c.beta); }
+    template <int N>
+    G32_MEMBER void sqr_n(Elem* r, const Elem* a) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) sqr(r[i], a[i]);
+    }
+    template <int N>
+    G32_MEMBER void mul_g_n(Elem* r, const Elem* a) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) mul_g(r[i], a[i]);
+    }
+    G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
+    G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
+    G32_MEMBER const uint32_t* delta() const { return c.delta; }
+    // the window table, as ThreadArith's; its entries are the only operands
+    // of a product that differ between threads
+    G32_MEMBER void store(int e, const Elem a) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+#pragma unroll
+            for (int j = 0; j < NW; ++j) tab[(e * NW + j) * stride + i] = a[i][j];
+    }
+    G32_MEMBER void load(Elem r, int e) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+#pragma unroll
+            for (int j = 0; j < NW; ++j) r[i][j] = tab[(e * NW + j) * stride + i];
+    }
+    G32_MEMBER void mul_tab(Elem r, const Elem a, int e) const {
+        Wide t;
+#pragma unroll
+        for (int i = 0; i < T; ++i) mt_mul_wide<NW>(t[i], a[i], tab + e * NW * stride + i, stride);
+        reduce(r, t);
+    }
+};
+
 // The 16 states of the warp whose first is state `base`, under MmaArith:
 // held thread i's state of half h, and whether it is one of the n (limb l
 // of an element at src[l * n + state]).  A state at or past n reads as 0
@@ -363,19 +454,19 @@ F32_FN int inv_alpha_window(const uint32_t* e, int top, int& len) {
 }
 
 // x^(1/alpha) of N elements.
-//   * Under LOCKSTEP (GroupArith): a left-to-right binary ladder over the
-//     exponent's bits.  Each trip of the loop is one N-fold product, a
-//     squaring or, after a set bit, the product by x, so the loop holds one
-//     copy of the product's code.
-//   * Otherwise (ThreadArith, N = 1): a left-to-right sliding window of 4
-//     bits.  The table x, x^3, ..., x^15 takes one squaring (x^2) and seven
-//     products.  Then, from the top bit down, a zero bit between windows is
-//     one squaring, and a window is one squaring a bit and one product by
-//     the table entry of its odd value; the first window is its entry.  Each
-//     trip of the rolled loop is one squaring or one product; every branch
-//     reads only the exponent, the same in every thread.  Vesta: 253
-//     squarings and 63 products (the ladder's 253 and 124); BLS12-381: 379
-//     and 89 (380 and 193).
+//   * Under LOCKSTEP (GroupArith, MmaArith): a left-to-right binary ladder
+//     over the exponent's bits.  Each trip of the loop is one N-fold
+//     product, a squaring or, after a set bit, the product by x, so the
+//     loop holds one copy of the product's code.
+//   * Otherwise (ThreadArith, MmaThreadArith; N = 1): a left-to-right
+//     sliding window of 4 bits.  The table x, x^3, ..., x^15 takes one
+//     squaring (x^2) and seven products.  Then, from the top bit down, a
+//     zero bit between windows is one squaring, and a window is one
+//     squaring a bit and one product by the table entry of its odd value;
+//     the first window is its entry.  Each trip of the rolled loop is one
+//     squaring or one product; every branch reads only the exponent, the
+//     same in every thread.  Vesta: 253 squarings and 63 products (the
+//     ladder's 253 and 124); BLS12-381: 379 and 89 (380 and 193).
 template <int N, class A>
 F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::Elem* x) {
     typename A::Elem acc[N];

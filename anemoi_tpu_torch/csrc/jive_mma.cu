@@ -10,59 +10,76 @@
 // limbs in Montgomery form with R = 2^(13L), canonical; the constants are
 // jive.cu's AnemoiConsts plus the B fragments of mxu_ops.fragment_words.
 //
-// Design.  A warp runs 16 states (field32_mma.cuh): quad g holds the
-// states of fragment rows g and g + 8, each word-sliced over its four
-// lanes as in the sponge kernel, so a state's bytes stay on its quad in the
-// mma's A fragment and in its accumulator.  Every product (MmaArith in
-// anemoi32.cuh) is T = a b on the integer pipe, word-sliced; then m = T_low
-// p' mod R' and U = m p as mma.sync m16n8k32 u8 x u8 -> s32 (a 12-word
-// field adds an m16n8k16 step for its 48 bytes of K): NW / 2 tiles for m
-// and NW / 2 + 1 for U's high half and the low half's top two columns,
-// whose sum gives the carry out of the low half.  The constants' fragments
-// (2.3 KB at 8 words, 4.9 KB at 12) are copied to shared memory once a
-// block, and each lane loads its B registers from there, 32 lanes on 32
-// banks.  Every lane of a warp must reach every mma, so there is no early
-// return at the ragged edge: a state at or past N reads as zero and is not
-// stored.  x^(1/alpha) is the binary ladder (LOCKSTEP): the window under
-// this policy is later work.  Entry and exit are jive.cu's conversions (one
-// product by c_in, one by c_out), run as the same products.
+// Design.  One state a thread, 32 a warp (MmaThreadArith in anemoi32.cuh
+// over field32_mma.cuh's one-state-a-thread product): each element lies
+// whole in its thread as NW words, as in jive.cu, and every product is the
+// thread's bilinear half (NW^2 word products, or NW (NW + 1) / 2 for a
+// squaring) and the warp's reduction, whose two products by constants,
+// m = T_low p' mod R' and U = m p, run as mma.sync m16n8k32 u8 x u8 -> s32
+// (a 12-word field adds an m16n8k16 step for its 48 bytes of K) with the
+// warp's 32 states as two m16 tiles: NW / 2 n8 tiles for m and NW / 2 + 1
+// for U's high half and the low half's top two columns.  Operands reach
+// the A fragments through each state's row of the warp's scratch and
+// ldmatrix; each lane recombines its byte columns of four states into word
+// slices and hands each back through the state's row; all carries then run
+// in the owning thread.  x^(1/alpha) is the 4-bit window, as in jive.cu,
+// its table of odd powers in shared memory (8 entries of NW words a
+// thread).  The constants' fragments are copied lane-major to shared
+// memory once a block (2.3 KB at 8 words; 6.5 KB at 12, a lane's three
+// registers padded to one 16-byte load).  Every lane of a warp must reach
+// every mma, so there is no early return at the ragged edge: a state at or
+// past N reads as zero and is not stored.  Entry and exit are jive.cu's
+// conversions (one product by c_in, one by c_out), run as the same
+// products.
 //
-// What bounds it on the card, per product of 16 states at 8 words (12 in
-// brackets): the IMADs left on the integer pipe, the bilinear half, NW^2 =
-// 64 [144] 32 x 32 -> 64-bit products, 2 IMADs each, about half of
-// f32_mont_mul's (the reduction was 136 [300] of its 264 [588]); the
-// tensor cores' u8 MACs, 16 rows x 8 columns x 32 [48] K x 9 [13] tiles =
-// 36,864 [79,872] (chip_smoke.py's bound counts the columns the product
-// needs, 4 NW x 4 NW for m and 4 NW x (4 NW + 2) for U); and the work the
-// design adds around them: the group's shuffles (3 NW a product and state
-// for T, a rotation each for the carries of m and of T + U), its votes and
-// the recombination of each lane's byte columns into words (a multiply-add
-// by 2^8, 2^16 or 2^24 a column).  What the design does about each: the
-// reduction's IMADs move to the tensor cores; the low half of U is never
-// summed; no byte of A or of an accumulator crosses lanes, only one
-// overflow word a lane does.  The tensor cores are not what bounds it:
-// sass.py counts the instructions of one product, and chip_smoke.py times
-// the kernel beside jive_kernel; PERF.md has the numbers.
+// What bounds it on the card, per product at 8 words (12 in brackets): the
+// IMADs of the bilinear half, NW^2 = 64 [144] 32 x 32 -> 64-bit word
+// products, 2 IMADs each, half that for a squaring; the tensor cores' u8
+// MACs, 32 states x 8 columns x 32 [48] K x 9 [13] tiles (chip_smoke.py's
+// bound counts the columns the product needs, 4 NW x 4 NW for m and
+// 4 NW x (4 NW + 2) for U); and the work around them: the recombination of
+// each lane's byte columns into words (a multiply-add by 2^8 or 2^16 a
+// column), the scratch rows' stores and loads, the carry chains.  What the
+// design does about each: the reduction's IMADs (136 [300] of f32_mont_mul's
+// 264 [588]) move to the tensor cores; squarings, 80% of the window's
+// products, run at half the bilinear cost; no carry crosses a lane; the low
+// half of U is never summed.  sass.py counts the instructions of one
+// squaring and one product, and chip_smoke.py times the kernel beside
+// jive_kernel; PERF.md has the numbers.
 
 #include <stdint.h>
 #include <string.h>
 
 #include "anemoi32.cuh"
 
-#define MMA_BLOCK 128  // four warps, 64 states
-
-// Jive-k of the 16 states from `base` (warp policy M): limb row r of the
-// states at in[r * n], of the result at out[r * n]; frag holds the
-// constants' fragments.
+// Jive-k of the 32 states from `base` (warp policy M, arithmetic ar): limb
+// row r of the states at in[r * n], of the result at out[r * n].  A state
+// at or past n reads as zero and is not written.
 template <int W, int K, int NW, class M>
-F32_FN void jive_mma_warp(int32_t* out, const int32_t* in, long long n, long long base, const AnemoiConsts<NW>& c,
-                          const uint32_t* frag) {
-    using A = MmaArith<NW, M>;
-    constexpr int OUT = W / K, NL = f32_limbs<NW>;
-    const A ar(c, frag);
+F32_FN void jive_mma_warp(int32_t* out, const int32_t* in, long long n, long long base,
+                          const MmaThreadArith<NW, M>& ar) {
+    using A = MmaThreadArith<NW, M>;
+    constexpr int OUT = W / K, NL = f32_limbs<NW>, T = M::T;
     typename A::Elem s[W], ff[OUT];
+    // limbs -> R' form, as f32_from_limbs
 #pragma unroll
-    for (int w = 0; w < W; ++w) mma_from_limbs<NW, M>(ar, s[w], in + (size_t)w * NL * n, n, base);
+    for (int w = 0; w < W; ++w) {
+        const int32_t* src = in + (size_t)w * NL * n;
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+            const long long st = base + M::lane_id(i);
+#pragma unroll
+            for (int j = 0; j < NW; ++j) s[w][i][j] = 0;
+#pragma unroll
+            for (int l = 0; l < NL; ++l) {
+                const uint32_t v = st < n ? (uint32_t)src[(size_t)l * n + st] & F32_LIMB_MASK : 0u;
+                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+                s[w][i][word] |= v << shift;
+                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) s[w][i][word + 1] |= v >> (32 - shift);
+            }
+        }
+        ar.mul_k(s[w], s[w], ar.c.c_in);
+    }
     // the input half of the feed-forward sum, taken before the permutation
 #pragma unroll
     for (int i = 0; i < OUT; ++i) {
@@ -72,41 +89,94 @@ F32_FN void jive_mma_warp(int32_t* out, const int32_t* in, long long n, long lon
     }
     permute_state<W>(s, ar);
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) {
+    for (int o = 0; o < OUT; ++o) {
 #pragma unroll
-        for (int j = 0; j < K; ++j) ar.add(ff[i], ff[i], s[i + OUT * j]);
-        mma_to_limbs<NW, M>(ar, out + (size_t)i * NL * n, n, base, ff[i]);
+        for (int j = 0; j < K; ++j) ar.add(ff[o], ff[o], s[o + OUT * j]);
+        // R' form -> canonical limbs, as f32_to_limbs
+        ar.mul_k(ff[o], ff[o], ar.c.c_out);
+        int32_t* dst = out + (size_t)o * NL * n;
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+            const long long st = base + M::lane_id(i);
+            if (st >= n) continue;
+#pragma unroll
+            for (int l = 0; l < NL; ++l) {
+                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+                uint32_t v = ff[o][i][word] >> shift;
+                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) v |= ff[o][i][word + 1] << (32 - shift);
+                dst[(size_t)l * n + st] = (int32_t)(v & F32_LIMB_MASK);
+            }
+        }
     }
+}
+
+// Shared memory of a block of `threads`, in words: the constants'
+// fragments, each warp's scratch rows, each thread's window table.
+template <int NW>
+constexpr int jive_mma_smem_words(int threads) {
+    return mt_frag_words<NW> + threads * MMA_ROW_WORDS + INV_ALPHA_TABLE * NW * threads;
 }
 
 #ifdef __CUDACC__
 using Consts = AnemoiConsts<ANEMOI_WORDS>;
 constexpr int FRAG_WORDS = mma_frag_words<ANEMOI_WORDS>;
 
-// The blocks an SM each width is built for, the second bound of
-// __launch_bounds__, from `python3 -m anemoi_tpu_torch.bounds_sweep
-// --sources jive_mma.cu` over 2^20 states on an H100 80GB HBM3 at 700 W
-// (PERF.md has the tables): the first guess, 2 for width 2 and 1 for width
-// 4, except 4 for width 4 at 8 words, faster than the guess by more than
-// the sweep's own noise; values that spill are not taken.  The sweep builds with each value given by -D; measure again
-// when nvcc changes or the kernel does.
+// Warps a block; bounds_sweep.py builds other values by -D to time them.
+#ifndef JIVE_MMA_BLOCK_WARPS
+#define JIVE_MMA_BLOCK_WARPS 4
+#endif
+#define MMA_BLOCK (JIVE_MMA_BLOCK_WARPS * MMA_WARP)
+constexpr int SMEM_BYTES = jive_mma_smem_words<ANEMOI_WORDS>(MMA_BLOCK) * 4;  // 45,312 at 8 words, 66,048 at 12
+
+// The register budget each width is built for, the second bound of
+// __launch_bounds__, counted in blocks of 128 threads an SM (a value v caps
+// a thread at 65,536 / (128 v) registers), as in sponge_mma.cu, from
+// `python3 -m anemoi_tpu_torch.bounds_sweep --sources jive_mma.cu` over 2^20
+// states on an H100 80GB HBM3 at 700 W (PERF.md has the table): 2 for both
+// widths.  Width 2 ran within the sweep's noise (the shipped build against
+// its twin) at every value without spills; width 4 ran faster at 2 than at
+// 1 by more than it, and at 12 words spills at every value, 72 bytes at 1
+// and 2, the fewest.  Budgets that spill more are not taken (width 4 at 8
+// words ran 18% faster at 4 with 92 bytes spilled).  Blocks of 1 and 2
+// warps ran no faster than 4.  Measure again when nvcc changes or the
+// kernel does.
 #ifndef JIVE_MMA2_MIN_BLOCKS
 #define JIVE_MMA2_MIN_BLOCKS 2
 #endif
 #ifndef JIVE_MMA4_MIN_BLOCKS
-#define JIVE_MMA4_MIN_BLOCKS (ANEMOI_WORDS == 8 ? 4 : 1)
+#define JIVE_MMA4_MIN_BLOCKS 2
 #endif
+#define MMA_MIN_RESIDENT(v) ((v) * 128 / MMA_BLOCK)
 
 template <int W, int K>
-__global__ void __launch_bounds__(MMA_BLOCK, W == 2 ? JIVE_MMA2_MIN_BLOCKS : JIVE_MMA4_MIN_BLOCKS)
+__global__ void __launch_bounds__(MMA_BLOCK, MMA_MIN_RESIDENT(W == 2 ? JIVE_MMA2_MIN_BLOCKS : JIVE_MMA4_MIN_BLOCKS))
     jive_mma_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n,
                     const __grid_constant__ Consts c, const uint32_t* __restrict__ frag) {
     static_assert(MMA_BLOCK % MMA_WARP == 0, "an mma takes a whole warp");
-    __shared__ uint32_t sfrag[FRAG_WORDS];
-    for (int i = threadIdx.x; i < FRAG_WORDS; i += MMA_BLOCK) sfrag[i] = frag[i];
+    extern __shared__ __align__(16) uint32_t smem[];
+    uint32_t* sfrag = smem;
+    for (int i = threadIdx.x; i < FRAG_WORDS; i += MMA_BLOCK) {
+        constexpr int R = mma_regs<ANEMOI_WORDS>;
+        sfrag[mt_frag_word<ANEMOI_WORDS>(i / (R * MMA_WARP), i / MMA_WARP % R, i % MMA_WARP)] = frag[i];
+    }
     __syncthreads();
-    const long long base = ((long long)blockIdx.x * MMA_BLOCK + threadIdx.x) / MMA_WARP * MMA_STATES;
-    jive_mma_warp<W, K, ANEMOI_WORDS, WarpMma>(out, in, n, base, c, sfrag);
+    const int warp = threadIdx.x / MMA_WARP;
+    uint32_t* rows = smem + mt_frag_words<ANEMOI_WORDS> + warp * MMA_THREAD_STATES * MMA_ROW_WORDS;
+    uint32_t* tab = smem + mt_frag_words<ANEMOI_WORDS> + MMA_BLOCK * MMA_ROW_WORDS + threadIdx.x;
+    const long long base = (long long)blockIdx.x * MMA_BLOCK + warp * MMA_THREAD_STATES;
+    jive_mma_warp<W, K, ANEMOI_WORDS, WarpMma>(out, in, n, base,
+                                              MmaThreadArith<ANEMOI_WORDS, WarpMma>{c, sfrag, rows, tab, MMA_BLOCK});
+}
+
+// The kernel of (width, k), or nullptr; its dynamic shared memory allowed
+// up to SMEM_BYTES (above the default 48 KB at 12 words).
+static const void* jive_mma_kernel_of(int width, int k) {
+    const void* f = width == 2 && k == 2   ? (const void*)jive_mma_kernel<2, 2>
+                    : width == 4 && k == 2 ? (const void*)jive_mma_kernel<4, 2>
+                    : width == 4 && k == 4 ? (const void*)jive_mma_kernel<4, 4>
+                                           : nullptr;
+    if (f) cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    return f;
 }
 
 // One warp: d = a b for the lanes' fragment registers as given, a K = 32
@@ -135,19 +205,19 @@ int anemoi_jive_mma(const void* in, void* out, long long n, int width, int k, co
     if (!((width == 2 && k == 2) || (width == 4 && (k == 2 || k == 4)))) return (int)cudaErrorInvalidValue;
     Consts c;
     memcpy(&c, consts, sizeof c);
-    const dim3 grid((unsigned)((n + MMA_BLOCK / MMA_WARP * MMA_STATES - 1) / (MMA_BLOCK / MMA_WARP * MMA_STATES))),
-        block(MMA_BLOCK);
+    const dim3 grid((unsigned)((n + MMA_BLOCK - 1) / MMA_BLOCK)), block(MMA_BLOCK);
     cudaStream_t s = (cudaStream_t)stream;
     const int32_t* x = (const int32_t*)in;
     int32_t* y = (int32_t*)out;
     const uint32_t* f = (const uint32_t*)frag;
     return launch_on(device, [&] {
+        jive_mma_kernel_of(width, k);
         if (width == 2)
-            jive_mma_kernel<2, 2><<<grid, block, 0, s>>>(x, y, n, c, f);
+            jive_mma_kernel<2, 2><<<grid, block, SMEM_BYTES, s>>>(x, y, n, c, f);
         else if (k == 2)
-            jive_mma_kernel<4, 2><<<grid, block, 0, s>>>(x, y, n, c, f);
+            jive_mma_kernel<4, 2><<<grid, block, SMEM_BYTES, s>>>(x, y, n, c, f);
         else
-            jive_mma_kernel<4, 4><<<grid, block, 0, s>>>(x, y, n, c, f);
+            jive_mma_kernel<4, 4><<<grid, block, SMEM_BYTES, s>>>(x, y, n, c, f);
     });
 }
 
@@ -169,16 +239,12 @@ int anemoi_jive_mma_consts_words(void) { return (int)(sizeof(Consts) / 4); }
 int anemoi_jive_mma_frag_words(void) { return FRAG_WORDS; }
 
 // Blocks of jive_mma_kernel<width, k> resident on one SM of the current
-// device, or -1 on an error.
+// device (registers and shared memory permitting), or -1 on an error.
 int anemoi_jive_mma_blocks_per_sm(int width, int k) {
     int blocks = -1;
-    cudaError_t err = cudaErrorInvalidValue;
-    if (width == 2 && k == 2)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_mma_kernel<2, 2>, MMA_BLOCK, 0);
-    else if (width == 4 && k == 2)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_mma_kernel<4, 2>, MMA_BLOCK, 0);
-    else if (width == 4 && k == 4)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_mma_kernel<4, 4>, MMA_BLOCK, 0);
+    const void* f = jive_mma_kernel_of(width, k);
+    const cudaError_t err = f ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, MMA_BLOCK, SMEM_BYTES)
+                              : cudaErrorInvalidValue;
     return err == cudaSuccess ? blocks : -1;
 }
 }

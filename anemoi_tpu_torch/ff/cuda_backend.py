@@ -7,8 +7,9 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
   * ``jive`` (``csrc/jive.cu``, for ``jive_pallas``): fused Jive-k,
     int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].  With a ``mul_impl``
     that starts with "mxu" (the JAX package's default product, on its matrix
-    unit) it launches ``csrc/jive_mma.cu`` instead, whose Montgomery
-    reduction runs on the tensor cores (``ff/mxu_ops.py``).
+    unit) it launches ``csrc/jive_mma.cu`` instead: one state a thread, as
+    ``jive.cu``, with each Montgomery product's reduction on the tensor
+    cores (``ff/mxu_ops.py``) for the warp's 32 states.
   * ``permutation`` (``csrc/sponge.cu``, for ``permutation_pallas``):
     int32 [WIDTH*L, N] -> int32 [WIDTH*L, N].  Two kernels: up to
     ``permute_group_max`` states (the library's crossover, measured on the
@@ -24,8 +25,8 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
     in shared memory, as in the one-thread permutation kernel.
   * With an "mxu" ``mul_impl``, ``permutation`` and ``sponge`` launch
     ``csrc/sponge_mma.cu`` instead (``permute_mma_kernel``,
-    ``sponge_mma_kernel``): the reduction on the tensor cores, as
-    ``jive_mma.cu``'s, 16 states or messages a warp.
+    ``sponge_mma_kernel``): the reduction on the tensor cores, 16 states
+    or messages a warp, each word-sliced over four lanes as in the sponge.
 
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over

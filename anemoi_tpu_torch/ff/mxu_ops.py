@@ -8,7 +8,7 @@ constants, m = (T mod R') * p' mod R' and U = m * p, which are matrix
 products: the bytes of T's low half (or of m) times a byte Toeplitz
 matrix of the constant.  On the H100 they run on the integer tensor cores
 (``csrc/field32_mma.cuh``: ``mma.sync`` m16n8k32, u8 x u8 -> s32, sixteen
-states a warp as the M dimension, the constant as the B operand).
+states a tile as the M dimension, the constant as the B operand).
 
 Here a field element is the kernels' NW 32-bit words (8 or 12), so
 R' = 2^(32 NW) and p' = -p^-1 mod R'.  A column of either matrix product

@@ -8,19 +8,23 @@ were:
 builds ``jive.cu``, ``sponge.cu``, ``jive_mma.cu`` and ``sponge_mma.cu``
 of this package's ``csrc/`` and of OTHER_CSRC (for example ``csrc/`` of a
 ``git archive`` of the parent commit; a source it lacks is not built) at 8
-and 12 words with the package's nvcc flags, all at once in a temporary
+and 12 words, and ``microbench.cu`` once (it holds both word counts'
+kernels), with the package's nvcc flags, all at once in a temporary
 directory, and prints for every kernel (``jive_kernel``,
 ``permute_kernel``, ``permute_group_kernel``, ``sponge_kernel``,
-``jive_mma_kernel``, ``permute_mma_kernel``, ``sponge_mma_kernel``)
+``jive_mma_kernel``, ``permute_mma_kernel``, ``sponge_mma_kernel``,
+``sqr_chain_kernel``, ``mad_loop_kernel``)
 "same" when its PTX and its SASS instructions (opcodes, registers,
 operands, in order) are the same in both trees and "changed" otherwise,
 with how many instructions differ and whether the binary encodings differ
 too; a kernel that only this tree has is "new".  For each tensor-core
 kernel (``MMA_KERNELS``) it also prints its registers and spills (ptxas)
-and the instructions of one product (``product_mix`` of its innermost
-loop, a trip of the ladder, over the products that trip runs): IMMA,
-IMAD, shuffles, votes and the other integer instructions.  Needs nvcc and
-cuobjdump (the card's machine).
+and the instructions of one product (``product_mix`` of ``product_loop``:
+for ``jive_mma_kernel``, whose x^(1/alpha) is the window, a trip of the
+window's loop, one squaring and one product; for the others a trip of the
+ladder, over the products that trip runs): IMMA, IMAD, shuffles, votes
+and the other integer instructions.  Needs nvcc and cuobjdump (the card's
+machine).
 """
 
 from __future__ import annotations
@@ -42,9 +46,13 @@ COUNTED = ("LDL", "STL", "SHFL", "VOTE", "IMAD")  # local memory, shuffles, vote
 # what is not integer ALU work in product_mix: the tensor cores, multiply-adds, lane traffic, memory, control
 NOT_ALU = ("IMMA", "IMAD", "SHFL", "VOTE", "LDS", "STS", "LDG", "STG", "LDL", "STL", "LDC", "ULDC", "BRA", "BAR",
            "BSSY", "BSYNC", "WARPSYNC", "EXIT", "NOP", "CALL", "RET")
-SOURCES = ("jive.cu", "sponge.cu", "jive_mma.cu", "sponge_mma.cu")
+SOURCES = ("jive.cu", "sponge.cu", "jive_mma.cu", "sponge_mma.cu", "microbench.cu")
+# the word counts a source is built for (-DANEMOI_WORDS); microbench.cu is one library for both
+BUILT_WORDS = {"microbench.cu": (8,)}
 # the tensor-core kernels, by source: their product's reduction runs as mma.sync (IMMA)
 MMA_KERNELS = {"jive_mma.cu": ("jive_mma_kernel",), "sponge_mma.cu": ("permute_mma_kernel", "sponge_mma_kernel")}
+# those of them whose x^(1/alpha) is the 4-bit window (the others run the binary ladder)
+WINDOW_KERNELS = ("jive_mma_kernel",)
 
 
 def kernel_name(mangled: str) -> str:
@@ -109,21 +117,37 @@ def product_mix(lines: list[str], products: int = 1) -> dict[str, float]:
     return {k: v / products for k, v in mix.items()}
 
 
-def innermost_loop(lines: list[str], holding: str | None = None) -> list[str]:
+def innermost_loop(lines: list[str], holding: str | None = None, least: int = 1) -> list[str]:
     """The shortest body between a backward branch and its target (of those
-    that hold an instruction of opcode `holding`, if given): in the sponge
-    kernel, one trip of the x^(1/alpha) ladder, one group product; in
-    jive_mma_kernel, with holding="IMMA", the ladder's trip."""
+    that hold at least `least` instructions of opcode `holding`, if given):
+    in the sponge kernel, one trip of the x^(1/alpha) ladder, one group
+    product; in a tensor-core kernel, with holding="IMMA", the ladder's trip
+    or the window table's (one product), and with `least` twice a product's
+    IMMAs, the window's (a squaring and a product)."""
     at = [int(re.search(r"/\*([0-9a-f]{4,})\*/", line).group(1), 16) for line in lines]
     best: list[str] = []
     for off, line in zip(at, lines):
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", line)
         if m and int(m.group(1), 16) < off:
             body = [x for o, x in zip(at, lines) if int(m.group(1), 16) <= o <= off]
-            if holding and not any((op := OPCODE.search(x)) and op.group(1) == holding for x in body):
+            if holding and sum(bool((op := OPCODE.search(x)) and op.group(1) == holding) for x in body) < least:
                 continue
             best = body if not best or len(body) < len(best) else best
     return best
+
+
+def product_loop(kernel: str, lines: list[str]) -> tuple[list[str], int]:
+    """(the loop whose trip ``mma_report`` counts, the products in a trip)
+    of tensor-core kernel<width, ...>'s SASS lines.  Under the window
+    (WINDOW_KERNELS): the shortest loop holding twice the IMMAs of the
+    shortest loop that holds any (the table's trip, one product), that is
+    the window's trip, one squaring and one product.  Under the ladder: the
+    shortest loop holding an IMMA, one product of the width's columns."""
+    name, args = kernel.split("<")
+    if name in WINDOW_KERNELS:
+        per = int(product_mix(innermost_loop(lines, "IMMA"))["IMMA"])
+        return innermost_loop(lines, "IMMA", least=2 * max(per, 1)), 2
+    return innermost_loop(lines, "IMMA"), int(args.split(",")[0].rstrip(">")) // 2
 
 
 def kernel_counts(lib: Path) -> dict[str, dict[str, int]]:
@@ -170,17 +194,19 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     trees = (_build.CSRC, Path(argv[0]).resolve())
-    jobs = [(t, s, w) for t in range(2) for s in SOURCES for w in (8, 12) if (trees[t] / s).exists()]
+    jobs = [(t, s, w) for t in range(2) for s in SOURCES for w in BUILT_WORDS.get(s, (8, 12))
+            if (trees[t] / s).exists()]
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(jobs)) as pool:
         dirs = [Path(tmp) / "this", Path(tmp) / "other"]
         for d in dirs:
             d.mkdir()
         built = dict(zip(jobs, pool.map(lambda j: _build_one(trees[j[0]], j[1], j[2], dirs[j[0]]), jobs)))
     for source in SOURCES:
-        for words in (8, 12):
+        for words in BUILT_WORDS.get(source, (8, 12)):
             this, other = built[(0, source, words)], built.get((1, source, words), ({}, {}))
+            label = source if source in BUILT_WORDS else f"{words} words"
             for name in sorted(this[0], key=kernel_name):
-                print(f"{words} words, {compare(name, this, other)}", flush=True)
+                print(f"{label}, {compare(name, this, other)}", flush=True)
             if source in MMA_KERNELS:
                 print_mma_report(source, words)
     return 0
@@ -188,19 +214,17 @@ def main(argv: list[str]) -> int:
 
 def mma_report(lib) -> dict[str, dict]:
     """{kernel<...>: its registers, spill store and load bytes, the whole
-    kernel's ``product_mix`` and one product's (its innermost loop that
-    holds an IMMA, a trip of the ladder, over the trip's one product a
-    column)} for each tensor-core kernel of a built ``jive_mma.cu`` or
+    kernel's ``product_mix`` and one product's (``product_loop``'s trip over
+    its products)} for each tensor-core kernel of a built ``jive_mma.cu`` or
     ``sponge_mma.cu`` library (``_build.Library``)."""
     regs = ptxas_table(lib.ptxas)
     out = {}
     for name, lines in functions(disassemble(lib.path)).items():
         kernel = kernel_name(name)
         if kernel.startswith(sum(MMA_KERNELS.values(), ())):
-            width = int(kernel.split("<")[1].split(",")[0].rstrip(">"))
             r, st, ld = regs[kernel]
             out[kernel] = {"registers": r, "spill_store": st, "spill_load": ld, "whole": product_mix(lines),
-                           "product": product_mix(innermost_loop(lines, "IMMA"), products=width // 2)}
+                           "product": product_mix(*product_loop(kernel, lines))}
     return out
 
 

@@ -142,16 +142,19 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      the bench's and the verifier's launches, which they report;
  18. the tensor-core Jive kernel (``csrc/jive_mma.cu``, ``mul_impl="mxuf"``;
      run before 15): its SASS at 8 and 12 words (IMMA in it, or the phase
-     fails; registers, spills, the instructions of one product); the card's
-     mma.sync m16n8k32 and m16n8k16 against the fragment layouts of
-     ``ff/mxu_ops.py``; the main path with every launch count set to 0 just
-     before and read just after (``jive_compress_batch_fn`` and
-     ``MerkleTree`` with ``mul_impl="mxuf"``: 1 + 20 jive_mma launches, none
-     of jive_kernel), its digests equal jive_kernel's and its root the
-     default one; Jive over 2^20 states of Vesta, BLS12-381 (its one launch
-     counted alone: the 12-word path) and BLS12-377 2_1, timed in turns with
-     ``jive_kernel`` (CUDA events) beside its bound (the IMADs left and the
-     u8 multiply-adds); then, beside ``python3 -m anemoi_tpu_torch.bench
+     fails; registers, spills, the instructions of the window's trip, a
+     squaring and a product); the card's mma.sync m16n8k32 and m16n8k16
+     against the fragment layouts of ``ff/mxu_ops.py``; the main path with
+     every launch count set to 0 just before and read just after
+     (``jive_compress_batch_fn`` and ``MerkleTree`` with
+     ``mul_impl="mxuf"``: 1 + 20 jive_mma launches, none of jive_kernel),
+     its digests equal jive_kernel's and its root the default one; the
+     root timed in turns with the default root (CUDA events); Jive over
+     2^20 states of Vesta, BLS12-381 (its one launch
+     counted alone: the 12-word path) and BLS12-377 2_1, every lane held
+     against ``jive_kernel`` and timed in turns with it (CUDA events)
+     beside its bound (the IMADs left and the u8 multiply-adds); then,
+     beside ``python3 -m anemoi_tpu_torch.bench
      --impl mxuf`` (a process of its own: its parity ok, its jive_mma
      launches), 65,536 lanes of each 2^20 Jive against the native oracle,
      4,099 states (the last warp ragged) of Vesta 2_1, Vesta 4_3 (k = 2,
@@ -1647,7 +1650,7 @@ def main() -> int:
                 print(f"  {words} words, {kernel}: {r['registers']} registers, spills {r['spill_store']}/"
                       f"{r['spill_load']} bytes, {b.cdll.anemoi_jive_mma_blocks_per_sm(width, k)} blocks per SM; "
                       f"SASS {r['whole']['instructions']:g} instructions, IMMA {r['whole']['IMMA']:g}; a product "
-                      f"(the ladder's trip over its {width // 2}): "
+                      f"(the window's trip, a squaring and a product, over its 2): "
                       + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()), flush=True)
                 if not r["whole"]["IMMA"]:
                     fail(f"{kernel} at {words} words has no IMMA instruction")
@@ -1684,10 +1687,21 @@ def main() -> int:
              "jive_mma")
         print(f"  its {N_FULL} digests equal jive_kernel's; MerkleTree(mul_impl={MMA_IMPL!r}).root equals the default "
               f"root ({since18()})", flush=True)
+        # the root's time, in turns with the default root (CUDA events around each call's levels)
+        default_tree = MerkleTree(inst, device=dev)
+        r_int = mb.event_ms(lambda: default_tree.root(leaves), MMA_REPS)
+        r_mma = mb.event_ms(lambda: tree.root(leaves), MMA_REPS)
+        r_mma2 = mb.event_ms(lambda: tree.root(leaves), MMA_REPS)
+        r_int2 = mb.event_ms(lambda: default_tree.root(leaves), MMA_REPS)
+        mma["root_ms"], mma["root_jive_ms"] = (r_mma + r_mma2) / 2, (r_int + r_int2) / 2
+        print(f"  the {N_FULL}-leaf root ({tree.num_levels(N_FULL)} launches; {smi}; CUDA events, {MMA_REPS} calls after "
+              f"a warm-up, in turns default, mma, mma, default): mul_impl {MMA_IMPL!r} {r_mma:.3f} and {r_mma2:.3f} ms, "
+              f"default (jive_kernel) {r_int:.3f} and {r_int2:.3f} ms "
+              f"({mma['root_jive_ms'] / mma['root_ms']:.3f}x) ({since18()})", flush=True)
         del leaves, digests
 
-        # full size, the card to itself: each field's 2_1 Jive over N_FULL states, the tensor-core kernel and
-        # jive_kernel in turns (CUDA events); the 12-word path's launch counted alone
+        # full size, the card to itself: each field's 2_1 Jive over N_FULL states, every lane held against
+        # jive_kernel, then both timed in turns (CUDA events); the 12-word path's launch counted alone
         outs = {}
         for field in MMA_FIELDS:
             inst = get_instance(field, "anemoi_2_1")
@@ -1698,6 +1712,8 @@ def main() -> int:
             torch.cuda.synchronize()
             if field == "bls12_381":
                 mma["launches_w12"] = cuda_backend.jive_mma.launches
+            held(outs[field][0], cuda_backend.jive(inst, 2, x), f"{field} {N_FULL} Jive, every lane against jive_kernel",
+                 "jive_mma" if words == 8 else "jive_mma_w12")
             t_jive = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x), MMA_REPS)
             t_mma = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x, MMA_IMPL), MMA_REPS)
             t_mma2 = mb.event_ms(lambda: cuda_backend.jive(inst, 2, x, MMA_IMPL), MMA_REPS)
@@ -1705,8 +1721,9 @@ def main() -> int:
             mma["ms"][field], mma["jive_ms"][field] = (t_mma + t_mma2) / 2, (t_jive + t_jive2) / 2
             b = mma["bound"][field] = mma_bound(inst, N_FULL, N_FULL * (inst.width + inst.width // 2)
                                                 * inst.field.n_limbs * 4)
-            print(f"  {field}/anemoi_2_1 Jive over {N_FULL} states ({words} words; {smi}; CUDA events, {MMA_REPS} "
-                  f"calls after a warm-up, in turns jive_kernel, mma, mma, jive_kernel): tensor-core kernel "
+            print(f"  {field}/anemoi_2_1 Jive over {N_FULL} states, every lane equal to jive_kernel's ({words} words; "
+                  f"{smi}; CUDA events, {MMA_REPS} calls after a warm-up, in turns jive_kernel, mma, mma, jive_kernel): "
+                  f"tensor-core kernel "
                   f"{t_mma:.3f} and {t_mma2:.3f} ms, jive_kernel {t_jive:.3f} and {t_jive2:.3f} ms "
                   f"({mma['jive_ms'][field] / mma['ms'][field]:.3f}x); bound {b['bound_ms']:.3f} ms by {b['unit']} "
                   f"(per permutation {b['imads']} IMADs left, {b['imad_ms']:.3f} ms; {b['macs']} u8 MACs, "
@@ -1771,6 +1788,8 @@ def main() -> int:
         print(f"  the bench (python3 -m anemoi_tpu_torch.bench --impl {MMA_IMPL}, beside this phase's checks): "
               f"headline {doc['value']} hashes/s, {len(runs)} runs with their parity ok, {mma['bench_launches']} "
               f"jive_mma launches in all ({since18()})", flush=True)
+        print(f"  phase 18: {time.perf_counter() - t18:.1f} s; {time.perf_counter() - T0:.1f} s since the script "
+              f"started", flush=True)
 
     # 19 --------------------------------------------------------------------
     if run(19):
@@ -2052,7 +2071,8 @@ def main() -> int:
                   mul_impl=MMA_IMPL, instance="vesta/anemoi_2_1", lanes=N_FULL, jive_kernel_ms=mma["jive_ms"]["vesta"],
                   bound_unit=mma["bound"]["vesta"]["unit"], imad_bound_ms=mma["bound"]["vesta"]["imad_ms"],
                   mac_bound_ms=mma["bound"]["vesta"]["mac_ms"], plain_lanes=N_PLAIN, oracle_lanes=N_ORACLE_FULL,
-                  root_launches=mma["launches"] - 1, bench_launches=mma["bench_launches"],
+                  root_launches=mma["launches"] - 1, root_ms=mma["root_ms"], root_jive_kernel_ms=mma["root_jive_ms"],
+                  bench_launches=mma["bench_launches"],
                   build_s=mma_libs[8].build_seconds),
             entry("jive_mma_w12", "anemoi_tpu_torch/csrc/jive_mma.cu", "anemoi_tpu/ff/pallas_backend.py:707",
                   mma["launches_w12"], mma["ms"]["bls12_381"], mma["plain_ms"][12], mma["bound"]["bls12_381"],

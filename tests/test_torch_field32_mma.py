@@ -1,17 +1,20 @@
 """The tensor-core Montgomery product of csrc/field32_mma.cuh and the Jive
 of csrc/jive_mma.cu, built for the host with g++.
 
-On the card a warp holds 16 states, two on each quad of four lanes, and
-the reduction's two products by constants run as mma.sync on the tensor
-cores; here the header's HostWarp policy holds the whole warp in one object
+On the card the tensor-core permutation and sponge hold 16 states a warp,
+two on each quad of four lanes, and the reduction's two products by
+constants run as mma.sync on the tensor cores; here the header's HostWarp
+policy holds the whole warp in one object
 and computes each mma from its definition over the 32 lanes' fragment
 registers, so the test runs the statements the kernel runs.  Checked: the
 emulated mma against a direct integer matrix product; the product
-(mma_mont_mul_n, alone and two side by side) against f32_mont_mul and
-f32_mont_sqr and Python ints on 10,000 random canonical pairs of each of
-the 7 fields and of 2^256 - 189 and 2^384 - 317 (no spare top bit), with
-the edge values; the Jive of one warp's 16 states through MmaArith against
-the native oracle, for 2_1 and 4_3 at 8 and 12 words, and a ragged warp.
+(mma_mont_mul_n, alone and two side by side: the tensor-core permutation
+and sponge's) against f32_mont_mul and f32_mont_sqr and Python ints on
+10,000 random canonical pairs of each of the 7 fields and of 2^256 - 189
+and 2^384 - 317 (no spare top bit), with the edge values; the Jive of
+jive_mma.cu's warp (one state a thread, tests/test_torch_jive_mma_thread.py
+holds its product and window) against the native oracle, for 2_1 and 4_3
+at 8 and 12 words, k = 2 and 4, ragged warps.
 On the card (skipped here): the kernel against jive_kernel and the plain
 version.  Tolerance: exact.
 """
@@ -69,12 +72,17 @@ template <int NW> void f32mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
         else f32_mont_mul<NW>(r + NW * i, a + NW * i, b + NW * i, p, n0);
     }
 }
+// jive_mma.cu's warp (32 states, MmaThreadArith) over its shared memory's host counterparts: the
+// fragments lane-major (mt_frag_word), the warp's scratch rows, its threads' window tables (stride 32)
 template <int NW> void jive_n(int32_t* out, const int32_t* in, long long n, int width, int k, const void* consts, const uint32_t* frag) {
-    const AnemoiConsts<NW>& c = *(const AnemoiConsts<NW>*)consts;
-    for (long long base = 0; base < n; base += MMA_STATES) {
-        if (width == 2) jive_mma_warp<2, 2, NW, HostWarp>(out, in, n, base, c, frag);
-        else if (k == 2) jive_mma_warp<4, 2, NW, HostWarp>(out, in, n, base, c, frag);
-        else jive_mma_warp<4, 4, NW, HostWarp>(out, in, n, base, c, frag);
+    constexpr int R = mma_regs<NW>;
+    static uint32_t lanes[mt_frag_words<NW>], rows[MMA_THREAD_STATES * MMA_ROW_WORDS], tab[INV_ALPHA_TABLE * NW * MMA_WARP];
+    for (int i = 0; i < mma_frag_words<NW>; ++i) lanes[mt_frag_word<NW>(i / (R * MMA_WARP), i / MMA_WARP % R, i % MMA_WARP)] = frag[i];
+    const MmaThreadArith<NW, HostWarp> ar{*(const AnemoiConsts<NW>*)consts, lanes, rows, tab, MMA_WARP};
+    for (long long base = 0; base < n; base += MMA_THREAD_STATES) {
+        if (width == 2) jive_mma_warp<2, 2, NW, HostWarp>(out, in, n, base, ar);
+        else if (k == 2) jive_mma_warp<4, 2, NW, HostWarp>(out, in, n, base, ar);
+        else jive_mma_warp<4, 4, NW, HostWarp>(out, in, n, base, ar);
     }
 }
 extern "C" {
@@ -163,20 +171,28 @@ def test_reduction_matches_f32(lib, prime):
 @pytest.mark.parametrize("field,iname,k,n", [
     ("vesta", "anemoi_2_1", 2, 16), ("vesta", "anemoi_4_3", 2, 16), ("vesta", "anemoi_4_3", 4, 11),
     ("bls12_381", "anemoi_2_1", 2, 16), ("bls12_381", "anemoi_4_3", 4, 16),
+    ("vesta", "anemoi_2_1", 2, 11), ("vesta", "anemoi_2_1", 2, 45), ("vesta", "anemoi_4_3", 2, 45),
+    ("vesta", "anemoi_4_3", 4, 45), ("bls12_381", "anemoi_2_1", 2, 45), ("bls12_381", "anemoi_4_3", 2, 11),
+    ("bls12_377", "anemoi_4_3", 4, 45),
 ])
 def test_host_jive_matches_oracle(lib, field, iname, k, n):
-    """jive_mma_warp over HostWarp (MmaArith) on one warp's states, n = 11
-    a ragged warp whose missing states are not written, against the native
-    oracle."""
+    """jive_mma_warp over HostWarp (MmaThreadArith, 32 states a warp), warp
+    after warp as the kernel's grid runs them, against the native oracle:
+    widths 2 and 4, k = 2 and 4, 8 and 12 words; n = 11 and 16 one ragged
+    warp, 45 a whole one and a ragged one; nothing is written past the n
+    states."""
     inst = get_instance(field, iname)
     W, L = inst.width, inst.field.n_limbs
     st = random_canonical(inst.field, (W, n), np.random.default_rng(n + W)).transpose(1, 0, 2).copy()
     x = np.ascontiguousarray(st.reshape(W * L, n))
-    out = np.full(((W // k) * L, n), -1, np.int32)
+    rows = (W // k) * L
+    out = np.full(rows * n + 64, -1, np.int32)  # a guard past the output
     lib.t_jive(_ptr(out), _ptr(x), n, W, k, inst.field.kernel_words, _ptr(cuda_backend.consts_words(inst)),
                _ptr(mxu_ops.fragment_words(inst.field)))
+    assert (out[rows * n:] == -1).all()
     want = native.jive_batch_canonical(inst, native.canonical_host(inst, torch.from_numpy(st)), k)
-    np.testing.assert_array_equal(native.canonical_host(inst, torch.from_numpy(out)), want)
+    got = native.canonical_host(inst, torch.from_numpy(out[:rows * n].reshape(rows, n)))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -146,3 +146,23 @@ def test_innermost_loop_holding_and_product_mix():
     assert sass.innermost_loop(lines, "IMMA") == lines[3:9]
     assert sass.product_mix(sass.innermost_loop(lines, "IMMA"), products=2) == {
         "IMMA": 0.5, "IMAD": 0.5, "SHFL": 0.5, "VOTE": 0.0, "ALU": 1.0, "instructions": 3.0}
+
+
+def test_product_loop_window_and_ladder():
+    """Under the window, the loop counted is the window's trip (twice the
+    IMMAs of the table's trip: a squaring and a product), not the table's
+    trip nor the round loop around both; under the ladder, the shortest
+    IMMA loop over the width's columns."""
+    lines = ["/*0000*/ MOV R1, R2 ;",
+             "/*0010*/ IMMA.16832.U8.U8 R4, R6.ROW, R8.COL, R4 ;", "/*0020*/ STS [R3], R4 ;",
+             "/*0030*/ @P0 BRA 0x10 ;",  # the table: one product and its store
+             "/*0040*/ IMMA.16832.U8.U8 R4, R6.ROW, R8.COL, R4 ;", "/*0050*/ IMAD R5, R4, R4, RZ ;",
+             "/*0060*/ @P1 BRA 0x40 ;",  # the squaring's way back
+             "/*0070*/ IMMA.16832.U8.U8 R4, R6.ROW, R10.COL, R4 ;", "/*0080*/ LDS R6, [R3] ;",
+             "/*0090*/ BRA 0x40 ;",  # the product's way back: the window's trip
+             "/*00a0*/ @P2 BRA 0x0 ;", "/*00b0*/ EXIT ;"]  # the round loop
+    body, products = sass.product_loop("jive_mma_kernel<2,2>", lines)
+    assert (body, products) == (lines[4:10], 2)
+    assert sass.product_mix(body, products)["IMMA"] == 1.0
+    body, products = sass.product_loop("permute_mma_kernel<4>", lines)
+    assert (body, products) == (lines[1:4], 2)
