@@ -5,16 +5,18 @@ changes how ptxas schedules it: ``JIVE2_MIN_BLOCKS`` and
 ``JIVE4_MIN_BLOCKS`` in ``csrc/jive.cu``, ``PERMUTE_MIN_BLOCKS`` and
 ``PERMUTE_GROUP_MIN_BLOCKS`` in ``csrc/sponge.cu``, ``JIVE_MMA2_MIN_BLOCKS``
 and ``JIVE_MMA4_MIN_BLOCKS`` in ``csrc/jive_mma.cu``,
-``PERMUTE_MMA_MIN_BLOCKS`` and ``SPONGE_MMA_MIN_BLOCKS`` in
-``csrc/sponge_mma.cu`` (whose one-warp blocks count a value in 128-thread
-blocks' worth of warps, the same register budget), one value per word
-count.  Each is the fastest value without spills of those this sweep
-measures.  For each value, the sources are built at 8 and 12 words with
-each of their constants set to it by ``-D``, 16 builds at once, beside the
-libraries as shipped; ``sponge_mma.cu`` is also built with blocks of 2 and
-4 warps (``MMA_BLOCK_WARPS``) and ``jive_mma.cu`` with blocks of 1 and 2
-(``JIVE_MMA_BLOCK_WARPS``; it ships 4), each with its shipped bounds
-(counted in 128-thread blocks, as in ``sponge_mma.cu``).  Then each kernel's
+``PERMUTE_MMA_MIN_BLOCKS``, ``SPONGE_MMA_MIN_BLOCKS`` and
+``PERMUTE_MMA_THREAD_MIN_BLOCKS`` in ``csrc/sponge_mma.cu`` (the tensor-core
+sources count a value in 128-thread blocks' worth of warps, the same
+register budget whatever their blocks), one value per word count.  Each is
+the fastest value without spills of those this sweep measures.  For each
+value, the sources are built at 8 and 12 words with each of their
+constants set to it by ``-D``, 16 builds at once, beside the libraries as
+shipped; ``sponge_mma.cu`` is also built with quad-form blocks of 2 and 4
+warps (``MMA_BLOCK_WARPS``; it ships 1) and thread-form blocks of 1 and 2
+(``PERMUTE_MMA_THREAD_BLOCK_WARPS``; it ships 4), and ``jive_mma.cu`` with
+blocks of 1 and 2 (``JIVE_MMA_BLOCK_WARPS``; it ships 4), each with its
+shipped bounds.  Then each kernel's
 registers and spills (ptxas) and resident blocks per SM are read, and it
 is timed with CUDA events at its main path's size on random canonical
 states or messages made on the card, its output held bit for bit against
@@ -26,9 +28,10 @@ the shipped library's:
     at 65,536 (Vesta 4_3, BLS12-381 4_3);
   * ``jive_mma_kernel<2,2>`` and ``<4,2>`` over 2^20 states, as
     ``jive_kernel``'s;
-  * ``permute_mma_kernel<4>`` at 4,096 and 65,536 states and
+  * the quad form's ``permute_mma_kernel<4>`` at 4,096 states and
     ``sponge_mma_kernel<4>`` over 4,096 messages of 10 KB (Vesta 4_3, 331
-    elements; BLS12-381 4_3, 218).
+    elements; BLS12-381 4_3, 218), the thread form's
+    ``permute_mma_thread_kernel<4>`` at 65,536 states.
 
 Run on the card:
 
@@ -58,13 +61,15 @@ from .microbench import event_ms
 MACROS = {"jive.cu": ("JIVE2_MIN_BLOCKS", "JIVE4_MIN_BLOCKS"),
           "sponge.cu": ("PERMUTE_MIN_BLOCKS", "PERMUTE_GROUP_MIN_BLOCKS"),
           "jive_mma.cu": ("JIVE_MMA2_MIN_BLOCKS", "JIVE_MMA4_MIN_BLOCKS"),
-          "sponge_mma.cu": ("PERMUTE_MMA_MIN_BLOCKS", "SPONGE_MMA_MIN_BLOCKS")}
+          "sponge_mma.cu": ("PERMUTE_MMA_MIN_BLOCKS", "SPONGE_MMA_MIN_BLOCKS", "PERMUTE_MMA_THREAD_MIN_BLOCKS")}
 # further builds of a source with its shipped bounds: (macro, value)
-SHAPES = {"sponge_mma.cu": (("MMA_BLOCK_WARPS", 2), ("MMA_BLOCK_WARPS", 4)),
+SHAPES = {"sponge_mma.cu": (("MMA_BLOCK_WARPS", 2), ("MMA_BLOCK_WARPS", 4), ("PERMUTE_MMA_THREAD_BLOCK_WARPS", 1),
+                            ("PERMUTE_MMA_THREAD_BLOCK_WARPS", 2)),
           "jive_mma.cu": (("JIVE_MMA_BLOCK_WARPS", 1), ("JIVE_MMA_BLOCK_WARPS", 2))}
 FIELDS = {8: "vesta", 12: "bls12_381"}
 # (source, kernel as ptxas names it, the macro that bounds it, instance, k or the permutation kernel, states);
-# sponge_mma_kernel's fifth field is None: its E is a 10 KB message's elements
+# sponge_mma_kernel's fifth field is None: its E is a 10 KB message's elements; the tensor-core permutation's is
+# the form, 1 the quad form and 0 the thread form
 KERNELS = (
     ("jive.cu", "jive_kernel<2,2>", "JIVE2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20),
     ("jive.cu", "jive_kernel<4,2>", "JIVE4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20),
@@ -72,8 +77,8 @@ KERNELS = (
     ("sponge.cu", "permute_kernel<4>", "PERMUTE_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16),
     ("jive_mma.cu", "jive_mma_kernel<2,2>", "JIVE_MMA2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20),
     ("jive_mma.cu", "jive_mma_kernel<4,2>", "JIVE_MMA4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20),
-    ("sponge_mma.cu", "permute_mma_kernel<4>", "PERMUTE_MMA_MIN_BLOCKS", "anemoi_4_3", 0, 4096),
-    ("sponge_mma.cu", "permute_mma_kernel<4>", "PERMUTE_MMA_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16),
+    ("sponge_mma.cu", "permute_mma_kernel<4>", "PERMUTE_MMA_MIN_BLOCKS", "anemoi_4_3", 1, 4096),
+    ("sponge_mma.cu", "permute_mma_thread_kernel<4>", "PERMUTE_MMA_THREAD_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16),
     ("sponge_mma.cu", "sponge_mma_kernel<4>", "SPONGE_MMA_MIN_BLOCKS", "anemoi_4_3", None, 4096),
 )
 MSG_BYTES = 10 * 1024
@@ -139,7 +144,8 @@ def run_kernel(lib, source: str, inst, arg: int, x: torch.Tensor) -> torch.Tenso
             cuda_backend._launch(lib.cdll, "anemoi_sponge_mma", x, out, inst.width, E, consts, frag)
         else:
             out = torch.empty_like(x)
-            cuda_backend._launch(lib.cdll, "anemoi_permute_mma", x, out, inst.width, consts, frag)
+            cuda_backend._launch(lib.cdll, "anemoi_permute_mma", x, out, inst.width, arg, consts, frag,
+                                 ctypes.pointer(ctypes.c_int(-1)))
     else:
         out = torch.empty_like(x)
         cuda_backend._launch(lib.cdll, "anemoi_permute", x, out, inst.width, arg, consts,
@@ -154,8 +160,9 @@ def blocks_per_sm(lib, kernel: str) -> int:
         return lib.cdll.anemoi_jive_blocks_per_sm(*args)
     if name == "jive_mma_kernel":
         return lib.cdll.anemoi_jive_mma_blocks_per_sm(*args)
-    if name in ("permute_mma_kernel", "sponge_mma_kernel"):
-        return lib.cdll.anemoi_sponge_mma_blocks_per_sm(name == "sponge_mma_kernel", *args)
+    if name in ("permute_mma_kernel", "sponge_mma_kernel", "permute_mma_thread_kernel"):
+        which = ("permute_mma_kernel", "sponge_mma_kernel", "permute_mma_thread_kernel").index(name)
+        return lib.cdll.anemoi_sponge_mma_blocks_per_sm(which, *args)
     return lib.cdll.anemoi_sponge_blocks_per_sm({"permute_kernel": 0, "permute_group_kernel": 1}[name], *args)
 
 

@@ -7,18 +7,20 @@
 // held whole by one thread (ThreadArith over field32.cuh: the Jive kernel
 // and the one-thread permutation kernel), word-sliced over a group of four
 // lanes (GroupArith over field32_group.cuh: the sponge kernel and the
-// four-lane permutation kernel), word-sliced so with two states a group
-// and the reduction on the tensor cores (MmaArith over field32_mma.cuh: the
+// four-lane permutation kernel), word-sliced so with the reduction on the
+// tensor cores (MmaArith over field32_mma.cuh: the quad form of the
 // tensor-core permutation and sponge kernels), or whole in one thread with
 // the reduction on the tensor cores (MmaThreadArith over field32_mma.cuh:
-// the tensor-core Jive kernel); the body is written once over the four.
+// the tensor-core Jive kernel and the thread form of the tensor-core
+// permutation); the body is written once over the four.
 // Rounds: ARK, MDS (1 or 2 columns), open Flystel; then a final MDS.
-// x^(1/alpha) is a 4-bit sliding window under ThreadArith and MmaThreadArith
-// (Vesta: 253 squarings and 63 products, table included; BLS12-381: 379 and
-// 89) and a binary ladder under GroupArith and MmaArith (253 and 124; 380
-// and 193); the reference's addition chains have 293 and 454 operations,
-// and the result is the same canonical value.  Round and exponent loops
-// stay rolled (#pragma unroll 1), which keeps the build to seconds.
+// x^(1/alpha) is a 4-bit sliding window under ThreadArith, MmaThreadArith
+// and MmaArith (Vesta: 253 squarings and 63 products, table included;
+// BLS12-381: 379 and 89) and a binary ladder under GroupArith (253 and 124;
+// 380 and 193); the reference's addition chains have 293 and 454
+// operations, and the result is the same canonical value.  Round and
+// exponent loops stay rolled (#pragma unroll 1), which keeps the build to
+// seconds.
 //
 // Constants (field words, round constants, exponent bits, rounds) arrive
 // in one struct passed to the kernels by value; one instantiation per
@@ -67,10 +69,13 @@ F32_FN void f32_copy(uint32_t r[NW], const uint32_t a[NW]) {
 // sqr_n, mul_n and mul_g_n do N independent products at once.  LOCKSTEP
 // runs the Flystel columns of a round side by side, each operation on
 // every column before the next, and their products as one N-fold product,
-// so that their latencies overlap.
+// so that their latencies overlap.  WINDOW says that x^(1/alpha) is the
+// 4-bit window, with its table kept by the arithmetic (store and load, and
+// mul_tab, the product by an entry, where columns run one after the
+// other), and not the binary ladder.
 
-// x^(1/alpha)'s window table under ThreadArith: the odd powers x, x^3, ...,
-// x^15 of a 4-bit window.
+// x^(1/alpha)'s window table: the odd powers x, x^3, ..., x^15 of a 4-bit
+// window.
 #define INV_ALPHA_WINDOW 4
 #define INV_ALPHA_TABLE (1 << (INV_ALPHA_WINDOW - 1))
 
@@ -83,7 +88,7 @@ F32_FN void f32_copy(uint32_t r[NW], const uint32_t a[NW]) {
 template <int NW>
 struct ThreadArith {
     using Elem = uint32_t[NW];
-    static constexpr bool LOCKSTEP = false;
+    static constexpr bool LOCKSTEP = false, WINDOW = true;
     const AnemoiConsts<NW>& c;
     uint32_t* tab;
     int stride;
@@ -139,7 +144,7 @@ template <int NW, class P>
 struct GroupArith {
     static constexpr int S = NW / 4;
     using Elem = uint32_t[P::H][S];
-    static constexpr bool LOCKSTEP = true;
+    static constexpr bool LOCKSTEP = true, WINDOW = false;
     const AnemoiConsts<NW>& c;
     uint32_t p[P::H][S], beta[P::H][S], delta_[P::H][S];
     G32_MEMBER GroupArith(const AnemoiConsts<NW>& consts) : c(consts) {
@@ -179,40 +184,44 @@ struct GroupArith {
     G32_MEMBER const Elem& delta() const { return delta_; }
 };
 
-// A warp holds 16 states (field32_mma.cuh, warp policy M), each element
-// word-sliced over a quad as under GroupArith, two states a quad (fragment
-// rows g and g + 8): the Jive kernel of jive_mma.cu.  The products run
-// mma_mont_mul_n: the bilinear half on the group's word-sliced operand
+// A warp holds 8 states (field32_mma.cuh's quad form, warp policy M),
+// one a quad, each element word-sliced over its quad as under GroupArith:
+// the quad form of sponge_mma.cu's permutation and sponge.  The products
+// run mma_mont_mul_n: the bilinear half on the group's word-sliced operand
 // scanning, the reduction's two products by constants on the tensor cores;
-// frag holds the constants' fragments (shared memory on the card).  Adds,
-// subtracts and selects run the group code on each half's quads.  LOCKSTEP,
-// so x^(1/alpha) is the binary ladder.
+// frag holds the constants' fragments (shared memory on the card).  Adds
+// and subtracts run the group code on each quad.  LOCKSTEP, and
+// x^(1/alpha) is the window over the N columns side by side: entry e of
+// column k is table slot e * N + k, held thread i's word j of slot s at
+// tab[(s * S + j) * stride + i] (on the card, each thread's slots of a
+// shared-memory table with stride the block's threads, so that a warp's 32
+// loads of one word fall in 32 banks).  Every lane loads the same slot, so
+// every lane reaches every mma.
 template <int NW, class M>
 struct MmaArith {
     using G = typename M::G;
     static constexpr int S = NW / 4, T = M::T, H = G::H;
-    using Elem = uint32_t[2][T][S];
-    static constexpr bool LOCKSTEP = true;
+    using Elem = uint32_t[T][S];
+    static constexpr bool LOCKSTEP = true, WINDOW = true;
     const AnemoiConsts<NW>& c;
     const uint32_t* frag;
+    uint32_t* tab;
+    int stride;
     uint32_t p[H][S];
     Elem beta;
-    G32_MEMBER MmaArith(const AnemoiConsts<NW>& consts, const uint32_t* fragments) : c(consts), frag(fragments) {
+    G32_MEMBER MmaArith(const AnemoiConsts<NW>& consts, const uint32_t* fragments, uint32_t* table, int table_stride)
+        : c(consts), frag(fragments), tab(table), stride(table_stride) {
         g_slice<NW, G>(p, c.p);
         splat(beta, c.beta);
     }
-    // every held lane's slice of the words w[NW], in both halves
+    // every held lane's slice of the words w[NW]
     G32_MEMBER static void splat(Elem r, const uint32_t w[NW]) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int q = 0; q < T; q += H) g_slice<NW, G>(r[h] + q, w);
+        for (int q = 0; q < T; q += H) g_slice<NW, G>(r + q, w);
     }
     G32_MEMBER void add(Elem r, const Elem a, const Elem b) const {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int q = 0; q < T; q += H) g_add<NW, G>(r[h] + q, a[h] + q, b[h] + q, p);
+        for (int q = 0; q < T; q += H) g_add<NW, G>(r + q, a + q, b + q, p);
     }
     G32_MEMBER void add(Elem r, const Elem a, const uint32_t k[NW]) const {
         Elem s;
@@ -221,26 +230,13 @@ struct MmaArith {
     }
     G32_MEMBER void sub(Elem r, const Elem a, const Elem b) const {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int q = 0; q < T; q += H) g_sub<NW, G>(r[h] + q, a[h] + q, b[h] + q, p);
+        for (int q = 0; q < T; q += H) g_sub<NW, G>(r + q, a + q, b + q, p);
     }
     G32_MEMBER void copy(Elem r, const Elem a) const {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int i = 0; i < T; ++i)
 #pragma unroll
-            for (int i = 0; i < T; ++i)
-#pragma unroll
-                for (int j = 0; j < S; ++j) r[h][i][j] = a[h][i][j];
-    }
-    // r = pick ? a : b, word by word (pick is the same in every lane)
-    G32_MEMBER void select(Elem r, bool pick, const Elem a, const Elem b) const {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int i = 0; i < T; ++i)
-#pragma unroll
-                for (int j = 0; j < S; ++j) r[h][i][j] = pick ? a[h][i][j] : b[h][i][j];
+            for (int j = 0; j < S; ++j) r[i][j] = a[i][j];
     }
     template <int N>
     G32_MEMBER void mul_n(Elem* r, const Elem* a, const Elem* b) const { mma_mont_mul_n<NW, M, N>(r, a, b, p, frag); }
@@ -254,19 +250,32 @@ struct MmaArith {
         mul_n<N>(r, a, g);
     }
     G32_MEMBER void mul(Elem r, const Elem a, const Elem b) const {
-        using E = uint32_t(*)[2][T][S];
-        using CE = const uint32_t(*)[2][T][S];
+        using E = uint32_t(*)[T][S];
+        using CE = const uint32_t(*)[T][S];
         mul_n<1>((E)r, (CE)a, (CE)b);  // one element as an array of one (C casts, as in mma_mont_mul_n)
     }
     G32_MEMBER void mul_g(Elem r, const Elem a) const { mul(r, a, beta); }
     G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
     G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }
     G32_MEMBER const uint32_t* delta() const { return c.delta; }
+    // the window table: store slot e, and load it
+    G32_MEMBER void store(int e, const Elem a) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+#pragma unroll
+            for (int j = 0; j < S; ++j) tab[(e * S + j) * stride + i] = a[i][j];
+    }
+    G32_MEMBER void load(Elem r, int e) const {
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+#pragma unroll
+            for (int j = 0; j < S; ++j) r[i][j] = tab[(e * S + j) * stride + i];
+    }
 };
 
 // A warp holds 32 states, one a thread, each element whole in its thread
 // (field32_mma.cuh's one-state-a-thread product, warp policy M): the Jive
-// kernel of jive_mma.cu.  Elem is the held threads' NW words (M::T threads:
+// kernel of jive_mma.cu and the thread form of sponge_mma.cu's permutation.  Elem is the held threads' NW words (M::T threads:
 // one on the card, the whole warp on the host).  Adds and subtracts are
 // field32.cuh's, in each thread; a product is the thread's bilinear half
 // (mt_mul_wide, or mt_sqr_wide for a squaring) and the warp's reduction on
@@ -281,7 +290,7 @@ struct MmaThreadArith {
     static constexpr int T = M::T;
     using Elem = uint32_t[T][NW];
     using Wide = uint32_t[T][2 * NW];
-    static constexpr bool LOCKSTEP = false;
+    static constexpr bool LOCKSTEP = false, WINDOW = true;
     const AnemoiConsts<NW>& c;
     const uint32_t* frag;
     uint32_t* rows;
@@ -353,48 +362,46 @@ struct MmaThreadArith {
     }
 };
 
-// The 16 states of the warp whose first is state `base`, under MmaArith:
-// held thread i's state of half h, and whether it is one of the n (limb l
-// of an element at src[l * n + state]).  A state at or past n reads as 0
-// and is not written, so the last warp runs whole.
+// The 8 states of the warp whose first is state `base`, under MmaArith:
+// held thread i's state, and whether it is one of the n (limb l of an
+// element at src[l * n + state]).  A state at or past n reads as 0 and is
+// not written, so the last warp runs whole.
 template <class M>
-F32_FN bool mma_state(long long base, long long n, int i, int h, long long& state) {
-    state = base + M::lane_id(i) / 4 + 8 * h;
+F32_FN bool mma_state(long long base, long long n, int i, long long& state) {
+    state = base + M::lane_id(i) / G32_LANES;
     return state < n;
 }
 
 // Limbs -> R' form, as f32_from_limbs: every lane of a quad reads all the
-// limbs of its two states, packs the words and keeps its slice; then one
-// product by c_in.
+// limbs of its state, packs the words and keeps its slice; then one product
+// by c_in.
 template <int NW, class M>
-F32_FN void mma_from_limbs(const MmaArith<NW, M>& ar, uint32_t r[2][M::T][NW / 4], const int32_t* src, long long n,
+F32_FN void mma_from_limbs(const MmaArith<NW, M>& ar, uint32_t r[M::T][NW / 4], const int32_t* src, long long n,
                            long long base) {
     using Elem = typename MmaArith<NW, M>::Elem;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < M::T; ++i) {
+        long long st;
+        const bool live = mma_state<M>(base, n, i, st);
+        uint32_t w[NW];
 #pragma unroll
-        for (int i = 0; i < M::T; ++i) {
-            long long st;
-            const bool live = mma_state<M>(base, n, i, h, st);
-            uint32_t w[NW];
+        for (int j = 0; j < NW; ++j) w[j] = 0;
 #pragma unroll
-            for (int j = 0; j < NW; ++j) w[j] = 0;
-#pragma unroll
-            for (int l = 0; l < f32_limbs<NW>; ++l) {
-                const uint32_t v = live ? (uint32_t)src[(size_t)l * n + st] & F32_LIMB_MASK : 0u;
-                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
-                w[word] |= v << shift;
-                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) w[word + 1] |= v >> (32 - shift);
-            }
-            const int lane = M::lane_id(i) % G32_LANES;
-#pragma unroll
-            for (int j = 0; j < NW / 4; ++j) {
-                uint32_t v = w[j];
-#pragma unroll
-                for (int k = 1; k < G32_LANES; ++k) v = lane == k ? w[k * (NW / 4) + j] : v;
-                r[h][i][j] = v;
-            }
+        for (int l = 0; l < f32_limbs<NW>; ++l) {
+            const uint32_t v = live ? (uint32_t)src[(size_t)l * n + st] & F32_LIMB_MASK : 0u;
+            const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+            w[word] |= v << shift;
+            if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) w[word + 1] |= v >> (32 - shift);
         }
+        const int lane = M::lane_id(i) % G32_LANES;
+#pragma unroll
+        for (int j = 0; j < NW / 4; ++j) {
+            uint32_t v = w[j];
+#pragma unroll
+            for (int k = 1; k < G32_LANES; ++k) v = lane == k ? w[k * (NW / 4) + j] : v;
+            r[i][j] = v;
+        }
+    }
     Elem k;
     ar.splat(k, ar.c.c_in);
     ar.mul(r, r, k);
@@ -402,42 +409,93 @@ F32_FN void mma_from_limbs(const MmaArith<NW, M>& ar, uint32_t r[2][M::T][NW / 4
 
 // R' form -> canonical limbs at dst[l * n + state], as f32_to_limbs: one
 // product by c_out, the words gathered into every lane of the quad, and
-// lane t writes limbs t, t + 4, ... of each of its live states.
+// lane t writes limbs t, t + 4, ... of its state if it is live.
 template <int NW, class M>
 F32_FN void mma_to_limbs(const MmaArith<NW, M>& ar, int32_t* dst, long long n, long long base,
-                         const uint32_t a[2][M::T][NW / 4]) {
+                         const uint32_t a[M::T][NW / 4]) {
     using G = typename M::G;
     constexpr int S = NW / 4, H = G::H;
     typename MmaArith<NW, M>::Elem x, k;
     ar.splat(k, ar.c.c_out);
     ar.mul(x, a, k);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int q = 0; q < M::T; q += H) {
+        uint32_t v[H], got[H], w[H][NW];
 #pragma unroll
-        for (int q = 0; q < M::T; q += H) {
-            uint32_t v[H], got[H], w[H][NW];
+        for (int j = 0; j < NW; ++j) {
 #pragma unroll
-            for (int j = 0; j < NW; ++j) {
+            for (int e = 0; e < H; ++e) v[e] = x[q + e][j % S];
+            G::bcast(got, v, j / S);
 #pragma unroll
-                for (int e = 0; e < H; ++e) v[e] = x[h][q + e][j % S];
-                G::bcast(got, v, j / S);
+            for (int e = 0; e < H; ++e) w[e][j] = got[e];
+        }
 #pragma unroll
-                for (int e = 0; e < H; ++e) w[e][j] = got[e];
-            }
+        for (int e = 0; e < H; ++e) {
+            long long st;
+            const bool live = mma_state<M>(base, n, q + e, st);
+            const int lane = M::lane_id(q + e) % G32_LANES;
 #pragma unroll
-            for (int e = 0; e < H; ++e) {
-                long long st;
-                const bool live = mma_state<M>(base, n, q + e, h, st);
-                const int lane = M::lane_id(q + e) % G32_LANES;
-#pragma unroll
-                for (int l = 0; l < f32_limbs<NW>; ++l) {
-                    const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
-                    uint32_t u = w[e][word] >> shift;
-                    if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) u |= w[e][word + 1] << (32 - shift);
-                    if (live && l % G32_LANES == lane) dst[(size_t)l * n + st] = (int32_t)(u & F32_LIMB_MASK);
-                }
+            for (int l = 0; l < f32_limbs<NW>; ++l) {
+                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+                uint32_t u = w[e][word] >> shift;
+                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) u |= w[e][word + 1] << (32 - shift);
+                if (live && l % G32_LANES == lane) dst[(size_t)l * n + st] = (int32_t)(u & F32_LIMB_MASK);
             }
         }
+    }
+}
+
+// Limbs -> R' form under MmaThreadArith, as f32_from_limbs: each held
+// thread's state base + lane (limb l at src[l * n + state]; zero at or past
+// n), then one product by c_in.
+template <int NW, class M>
+F32_FN void mt_from_limbs(const MmaThreadArith<NW, M>& ar, uint32_t r[M::T][NW], const int32_t* src, long long n,
+                          long long base) {
+#pragma unroll
+    for (int i = 0; i < M::T; ++i) {
+        const long long st = base + M::lane_id(i);
+#pragma unroll
+        for (int j = 0; j < NW; ++j) r[i][j] = 0;
+#pragma unroll
+        for (int l = 0; l < f32_limbs<NW>; ++l) {
+            const uint32_t v = st < n ? (uint32_t)src[(size_t)l * n + st] & F32_LIMB_MASK : 0u;
+            const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+            r[i][word] |= v << shift;
+            if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) r[i][word + 1] |= v >> (32 - shift);
+        }
+    }
+    ar.mul_k(r, r, ar.c.c_in);
+}
+
+// R' form -> canonical limbs at dst[l * n + state] under MmaThreadArith, as
+// f32_to_limbs: one product by c_out, in place (x is left in plain form),
+// and each held thread writes its state's limbs if it is live.
+template <int NW, class M>
+F32_FN void mt_to_limbs(const MmaThreadArith<NW, M>& ar, int32_t* dst, long long n, long long base,
+                        uint32_t x[M::T][NW]) {
+    ar.mul_k(x, x, ar.c.c_out);
+#pragma unroll
+    for (int i = 0; i < M::T; ++i) {
+        const long long st = base + M::lane_id(i);
+        if (st >= n) continue;
+#pragma unroll
+        for (int l = 0; l < f32_limbs<NW>; ++l) {
+            const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
+            uint32_t v = x[i][word] >> shift;
+            if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) v |= x[i][word + 1] << (32 - shift);
+            dst[(size_t)l * n + st] = (int32_t)(v & F32_LIMB_MASK);
+        }
+    }
+}
+
+// Shared memory of a block of `threads` under MmaThreadArith, in words:
+// the constants' fragments lane-major (mt_frag_word, mt_copy_fragments),
+// then each warp's scratch rows (MMA_THREAD_STATES x MMA_ROW_WORDS), then
+// each thread's window table (INV_ALPHA_TABLE x NW words, stride `threads`,
+// so that a warp's 32 loads of one word fall in 32 banks).
+template <int NW>
+constexpr int mt_smem_words(int threads) {
+    return mt_frag_words<NW> + threads * MMA_ROW_WORDS + INV_ALPHA_TABLE * NW * threads;
 }
 
 // The window of the exponent `e` that starts at its set bit `top`: at
@@ -454,25 +512,28 @@ F32_FN int inv_alpha_window(const uint32_t* e, int top, int& len) {
 }
 
 // x^(1/alpha) of N elements.
-//   * Under LOCKSTEP (GroupArith, MmaArith): a left-to-right binary ladder
-//     over the exponent's bits.  Each trip of the loop is one N-fold
-//     product, a squaring or, after a set bit, the product by x, so the
-//     loop holds one copy of the product's code.
-//   * Otherwise (ThreadArith, MmaThreadArith; N = 1): a left-to-right
+//   * Under WINDOW (ThreadArith, MmaThreadArith, MmaArith): a left-to-right
 //     sliding window of 4 bits.  The table x, x^3, ..., x^15 takes one
 //     squaring (x^2) and seven products.  Then, from the top bit down, a
 //     zero bit between windows is one squaring, and a window is one
 //     squaring a bit and one product by the table entry of its odd value;
 //     the first window is its entry.  Each trip of the rolled loop is one
-//     squaring or one product; every branch reads only the exponent, the
-//     same in every thread.  Vesta: 253 squarings and 63 products (the
-//     ladder's 253 and 124); BLS12-381: 379 and 89 (380 and 193).
+//     N-fold squaring or one N-fold product; every branch reads only the
+//     exponent, the same in every thread.  Under LOCKSTEP (MmaArith, whose
+//     squaring is its product) a trip's squaring is the product by acc
+//     itself, so the loop holds one copy of the N-fold product's code.
+//     Vesta: 253 squarings and 63 products (the ladder's 253 and 124);
+//     BLS12-381: 379 and 89 (380 and 193).
+//   * Otherwise (GroupArith): a left-to-right binary ladder over the
+//     exponent's bits.  Each trip of the loop is one N-fold product, a
+//     squaring or, after a set bit, the product by x, so the loop holds one
+//     copy of the product's code.
 template <int N, class A>
 F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::Elem* x) {
     typename A::Elem acc[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) ar.copy(acc[i], x[i]);
-    if constexpr (A::LOCKSTEP) {
+    if constexpr (!A::WINDOW) {
         typename A::Elem f[N];
         bool by_x = false;
 #pragma unroll 1
@@ -487,7 +548,9 @@ F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::El
             }
             ar.template mul_n<N>(acc, acc, f);
         }
-    } else {
+    } else if constexpr (!A::LOCKSTEP) {
+        // one column, written apart from the N columns below: run through that form, the kernels over
+        // ThreadArith and MmaThreadArith compile to other PTX
         static_assert(N == 1, "one thread runs its columns one after the other");
         ar.store(0, x[0]);
         ar.sqr(acc[0], x[0]);
@@ -522,6 +585,54 @@ F32_FN void exp_inv_alpha(const A& ar, typename A::Elem* r, const typename A::El
                 ar.mul_tab(acc[0], acc[0], e);
                 e = -1;
             }
+        }
+    } else {
+        // the N columns side by side: entry e of column i is the table's slot e * N + i, and a trip's squaring
+        // is the product by acc itself, so the loop holds one copy of the N-fold product
+        typename A::Elem f[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) ar.store(i, x[i]);
+        ar.template mul_n<N>(acc, x, x);
+#pragma unroll 1
+        for (int e = 1; e < INV_ALPHA_TABLE; ++e) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) ar.load(f[i], (e - 1) * N + i);
+            ar.template mul_n<N>(f, acc, f);
+#pragma unroll
+            for (int i = 0; i < N; ++i) ar.store(e * N + i, f[i]);
+        }
+        const uint32_t* bits = ar.c.inv_alpha;
+        int bit = (int)ar.c.inv_alpha_bits - 1, sq;
+        const int first = inv_alpha_window(bits, bit, sq);
+#pragma unroll
+        for (int i = 0; i < N; ++i) ar.load(acc[i], first * N + i);
+        bit -= sq;
+        sq = 0;
+        int e = -1;  // what comes before bit: sq squarings, then the product by entry e if e >= 0
+#pragma unroll 1
+        for (;;) {
+            if (sq == 0 && e < 0) {
+                if (bit < 0) break;
+                if ((bits[bit >> 5] >> (bit & 31)) & 1u) {
+                    e = inv_alpha_window(bits, bit, sq);
+                    bit -= sq;
+                } else {
+                    sq = 1;
+                    --bit;
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                if (sq > 0)
+                    ar.copy(f[i], acc[i]);
+                else
+                    ar.load(f[i], e * N + i);
+            }
+            ar.template mul_n<N>(acc, acc, f);
+            if (sq > 0)
+                --sq;
+            else
+                e = -1;
         }
     }
 #pragma unroll
@@ -629,4 +740,5 @@ inline int launch_on(int device, Launch launch) {
     }
     return (int)err;
 }
+
 #endif  // __CUDACC__

@@ -1,17 +1,19 @@
 // The Montgomery product with its reduction on Hopper's integer tensor
 // cores: the counterpart of anemoi_tpu/ff/mxu_ops.py:mont_mul_mxu, the JAX
 // package's product whose two products by constants run on the TPU's matrix
-// unit.  Two forms: field32_group.cuh's word-sliced elements, 16 states a
-// warp (mma_mont_mul_n: the tensor-core permutation and sponge of
-// sponge_mma.cu), and whole elements, one state a thread, 32 a warp
-// (mt_mont_reduce, at the end of this file: the Jive of jive_mma.cu).
+// unit.  Two forms: field32_group.cuh's word-sliced elements, one state a
+// quad, 8 a warp (mma_mont_mul_n: the quad form of sponge_mma.cu's
+// permutation and sponge), and whole elements, one state a thread, 32 a
+// warp (mt_mont_reduce, at the end of this file: the Jive of jive_mma.cu and
+// the thread form of sponge_mma.cu's permutation).
 //
-// A warp holds 16 states, the M dimension of mma.sync m16n8k32 (u8 x u8 ->
-// s32): quad g (lanes 4g .. 4g + 3) holds fragment rows g and g + 8, two
-// states, each word-sliced over the quad as in field32_group.cuh (lane t
-// holds words [t S, t S + S), S = NW / 4).  An element of the 16 states is
-// uint32_t[2][T][S]: [half][thread held][word], half 0 the row g state and
-// half 1 the row g + 8 one.  The group code acts on each half's quads.
+// The quad form.  A warp holds 8 states: quad g (lanes 4g .. 4g + 3) holds
+// the state of fragment row g of mma.sync m16n8k32 (u8 x u8 -> s32),
+// word-sliced over the quad as in field32_group.cuh (lane t holds words
+// [t S, t S + S), S = NW / 4).  Rows g + 8 of A read zero: the tensor cores
+// are a few percent of a product's instructions, and a lane that carried a
+// second state would run the group code twice.  An element of the 8 states
+// is uint32_t[T][S]: [thread held][word].
 //
 // The product r = a b / R' mod p, R' = 2^(32 NW), p' = -p^-1 mod R':
 //   1. T = a b on the integer pipe (g_mul_wide_n): the group's word-sliced
@@ -42,7 +44,7 @@
 //   4. The sum is below 2p: g_reduce_once_n takes p off.
 // Per product and quad: 3 NW shuffles in T, 2 in the carries; the tensor
 // cores do NW / 2 + NW / 2 + 1 n8 tiles (a k32 step each, plus a k16 step at
-// 12 words) for 16 states.
+// 12 words) for 8 states.
 //
 // The warp policy M says where the lanes are:
 //   * WarpMma (on the card): a thread is one lane, T = 1; the mma is one
@@ -62,7 +64,12 @@
 #include "field32_group.cuh"
 
 #define MMA_WARP 32
-#define MMA_STATES 16  // states a warp: rows g and g + 8 of each quad g
+// The second bound of __launch_bounds__ for a register budget v counted in
+// blocks of 128 threads an SM (v caps a thread at 65,536 / (128 v)
+// registers): that many warps' worth of blocks of `block` threads, so that
+// one value means one budget in every source and block shape.
+#define MMA_MIN_RESIDENT(v, block) ((v) * 128 / (block))
+#define MMA_STATES 8  // states a warp under the quad form: quad g holds row g
 
 // B-fragment registers of one n8 tile (the k32 step's two, and a 12-word
 // field's k16 step's one), and the tiles of m and of U.
@@ -285,24 +292,24 @@ F32_FN void g_mul_wide_n(uint32_t (*lo)[P::H][NW / 4], uint32_t (*hi)[P::H][NW /
         for (int h = 0; h < H; ++h) carry[k][h] = (uint32_t)up[k][h];
 }
 
-// acc[j] = the NT n8 tiles from tile0 of x's bytes (A, the 16 states of an
-// element, uint32_t[2][T][S]) times the constant's fragments (B: `frag`,
-// word (tile * R + r) * 32 + lane).  Lane t's A registers are its own
-// words: half 0's and half 1's word 0 (K slots t, rows g and g + 8), then
-// word 1 (slots t + 4); at 12 words a k16 step takes word 2.
+// acc[j] = the NT n8 tiles from tile0 of x's bytes (A, the 8 states of an
+// element, uint32_t[T][S]) times the constant's fragments (B: `frag`, word
+// (tile * R + r) * 32 + lane).  Lane t's A registers are its own words: word
+// 0 (K slot t, row g), then word 1 (slot t + 4); at 12 words a k16 step
+// takes word 2.  Rows g + 8 are zero.
 template <int NW, class M, int NT>
-F32_FN void mma_tiles(int32_t (*acc)[M::T][4], const uint32_t (*x)[M::T][NW / 4], const uint32_t* frag, int tile0) {
+F32_FN void mma_tiles(int32_t (*acc)[M::T][4], const uint32_t (*x)[NW / 4], const uint32_t* frag, int tile0) {
     constexpr int T = M::T, R = mma_regs<NW>;
     uint32_t a[T][4], a16[T][2];
 #pragma unroll
     for (int i = 0; i < T; ++i) {
-        a[i][0] = x[0][i][0];
-        a[i][1] = x[1][i][0];
-        a[i][2] = x[0][i][1];
-        a[i][3] = x[1][i][1];
+        a[i][0] = x[i][0];
+        a[i][1] = 0;
+        a[i][2] = x[i][1];
+        a[i][3] = 0;
         if constexpr (NW == 12) {
-            a16[i][0] = x[0][i][2];
-            a16[i][1] = x[1][i][2];
+            a16[i][0] = x[i][2];
+            a16[i][1] = 0;
         }
     }
 #pragma unroll
@@ -322,18 +329,18 @@ F32_FN void mma_tiles(int32_t (*acc)[M::T][4], const uint32_t (*x)[M::T][NW / 4]
     }
 }
 
-// w = the S words of thread i's half-h byte columns in the first 2S tiles
+// w = the S words of thread i's row-g byte columns in the first 2S tiles
 // (tile j holds the lane's bytes 2j and 2j + 1), plus add[] where given;
 // returns what is above them (below 2^15).  w may alias add.
 template <int NW, class M>
-F32_FN uint32_t mma_words(uint32_t w[NW / 4], const int32_t (*acc)[M::T][4], int i, int h, const uint32_t* add) {
+F32_FN uint32_t mma_words(uint32_t w[NW / 4], const int32_t (*acc)[M::T][4], int i, const uint32_t* add) {
     uint64_t s = 0;
 #pragma unroll
     for (int j = 0; j < NW / 4; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-            s += ((uint64_t)(uint32_t)acc[2 * j + e][i][2 * h] << (16 * e)) +
-                 ((uint64_t)(uint32_t)acc[2 * j + e][i][2 * h + 1] << (16 * e + 8));
+            s += ((uint64_t)(uint32_t)acc[2 * j + e][i][0] << (16 * e)) +
+                 ((uint64_t)(uint32_t)acc[2 * j + e][i][1] << (16 * e + 8));
         if (add) s += add[j];
         w[j] = (uint32_t)s;
         s >>= 32;
@@ -341,23 +348,22 @@ F32_FN uint32_t mma_words(uint32_t w[NW / 4], const int32_t (*acc)[M::T][4], int
     return (uint32_t)s;
 }
 
-// r[k] = a[k] * b[k] / 2^(32 NW) mod p for N products of 16-state elements
+// r[k] = a[k] * b[k] / 2^(32 NW) mod p for N products of 8-state elements
 // side by side, a[k] below 2^(32 NW) and b[k] below p (or the other way
 // round); p is the group's slices of p, frag the constant fragments.  r may
 // alias a or b.
 template <int NW, class M, int N>
-F32_FN void mma_mont_mul_n(uint32_t (*r)[2][M::T][NW / 4], const uint32_t (*a)[2][M::T][NW / 4],
-                           const uint32_t (*b)[2][M::T][NW / 4], const uint32_t p[][NW / 4], const uint32_t* frag) {
+F32_FN void mma_mont_mul_n(uint32_t (*r)[M::T][NW / 4], const uint32_t (*a)[M::T][NW / 4],
+                           const uint32_t (*b)[M::T][NW / 4], const uint32_t p[][NW / 4], const uint32_t* frag) {
     using G = typename M::G;
-    constexpr int S = NW / 4, T = M::T, H = G::H, NG = N * 2 * T / H, MT = mma_m_tiles<NW>;
-    // the N products' 2 T / H groups, as the group code takes them (C casts: nvcc refuses
+    constexpr int S = NW / 4, T = M::T, H = G::H, NG = N * T / H, MT = mma_m_tiles<NW>;
+    // the N products' T / H groups, as the group code takes them (C casts: nvcc refuses
     // reinterpret_cast between these pointers to arrays of const)
     using Group = uint32_t (*)[H][S];
     using CGroup = const uint32_t (*)[H][S];
     using Words = uint32_t (*)[H];
     using CWords = const uint32_t (*)[H];
-    uint32_t tlo[N][2][T][S], thi[N][2][T][S], tup[N][2][T], m[N][2][T][S], ov[N][2][T], in0[N][2][T],
-        top[N][2][T];
+    uint32_t tlo[N][T][S], thi[N][T][S], tup[N][T], m[N][T][S], ov[N][T], in0[N][T], top[N][T];
     g_mul_wide_n<NW, G, NG>((Group)tlo, (Group)thi, (Words)tup, (CGroup)a, (CGroup)b);
     // m = T_low p' mod R'
 #pragma unroll
@@ -365,39 +371,32 @@ F32_FN void mma_mont_mul_n(uint32_t (*r)[2][M::T][NW / 4], const uint32_t (*a)[2
         int32_t acc[MT][T][4];
         mma_tiles<NW, M, MT>(acc, tlo[k], frag, 0);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int i = 0; i < T; ++i) {
-                ov[k][h][i] = mma_words<NW, M>(m[k][h][i], acc, i, h, nullptr);
-                in0[k][h][i] = 0;
-            }
+        for (int i = 0; i < T; ++i) {
+            ov[k][i] = mma_words<NW, M>(m[k][i], acc, i, nullptr);
+            in0[k][i] = 0;
+        }
     }
-    g_carry_in_n<NW, G, NG>((Group)m, (CWords)ov,
-                            (CWords)in0, (Words)top);
+    g_carry_in_n<NW, G, NG>((Group)m, (CWords)ov, (CWords)in0, (Words)top);
     // T_high + U_high + the carry out of T_low + U_low, with T_high's deferred carries
 #pragma unroll
     for (int k = 0; k < N; ++k) {
         int32_t acc[MT + 1][T][4];
         mma_tiles<NW, M, MT + 1>(acc, m[k], frag, MT);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int i = 0; i < T; ++i) {
-                ov[k][h][i] = mma_words<NW, M>(thi[k][h][i], acc, i, h, thi[k][h][i]) + tup[k][h][i];
-                const uint32_t x = (uint32_t)acc[MT][i][2 * h] + ((uint32_t)acc[MT][i][2 * h + 1] << 8) +
-                                   (tlo[k][h][i][S - 1] >> 16);  // lane 3's: U's columns 4 NW - 2, 4 NW - 1
-                in0[k][h][i] = (x >> 16) + ((x & 0xffffu) != 0);
-            }
+        for (int i = 0; i < T; ++i) {
+            ov[k][i] = mma_words<NW, M>(thi[k][i], acc, i, thi[k][i]) + tup[k][i];
+            const uint32_t x = (uint32_t)acc[MT][i][0] + ((uint32_t)acc[MT][i][1] << 8) +
+                               (tlo[k][i][S - 1] >> 16);  // lane 3's: U's columns 4 NW - 2, 4 NW - 1
+            in0[k][i] = (x >> 16) + ((x & 0xffffu) != 0);
+        }
     }
-    g_carry_in_n<NW, G, NG>((Group)thi, (CWords)ov,
-                            (CWords)in0, (Words)top);
-    g_reduce_once_n<NW, G, NG>((Group)r, (CGroup)thi,
-                               (CWords)top, p);
+    g_carry_in_n<NW, G, NG>((Group)thi, (CWords)ov, (CWords)in0, (Words)top);
+    g_reduce_once_n<NW, G, NG>((Group)r, (CGroup)thi, (CWords)top, p);
 }
 
 // ---------------------------------------------------------------------------
-// One state a thread: the product of jive_mma.cu's kernel (MmaThreadArith in
-// anemoi32.cuh).
+// One state a thread: the product of jive_mma.cu's kernel and of
+// sponge_mma.cu's thread-form permutation (MmaThreadArith in anemoi32.cuh).
 //
 // A warp holds 32 states, held thread i state i, each element whole in its
 // thread as NW words, as field32.cuh's one-thread code holds it.  The
@@ -455,6 +454,18 @@ constexpr int mt_frag_words = (mma_m_tiles<NW> + mma_u_tiles<NW>) * MMA_WARP * m
 template <int NW>
 F32_FN int mt_frag_word(int tile, int r, int lane) {
     return (tile * MMA_WARP + lane) * mt_frag_stride<NW> + r;
+}
+
+// Copies words first, first + step, ... of the constants' fragments as
+// mxu_ops.fragment_words lays them out (frag: word (tile * R + r) * 32 +
+// lane) to their places in the lane-major layout at dst (mt_frag_word): a
+// block's threads each take their share (first = the thread, step = the
+// block), the host takes them all.
+template <int NW>
+F32_FN void mt_copy_fragments(uint32_t* dst, const uint32_t* frag, int first, int step) {
+    constexpr int R = mma_regs<NW>;
+    for (int i = first; i < mma_frag_words<NW>; i += step)
+        dst[mt_frag_word<NW>(i / (R * MMA_WARP), i / MMA_WARP % R, i % MMA_WARP)] = frag[i];
 }
 
 // Four words at p (16-byte aligned), in one access on the card.

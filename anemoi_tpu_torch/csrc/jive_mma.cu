@@ -59,27 +59,10 @@ template <int W, int K, int NW, class M>
 F32_FN void jive_mma_warp(int32_t* out, const int32_t* in, long long n, long long base,
                           const MmaThreadArith<NW, M>& ar) {
     using A = MmaThreadArith<NW, M>;
-    constexpr int OUT = W / K, NL = f32_limbs<NW>, T = M::T;
+    constexpr int OUT = W / K, NL = f32_limbs<NW>;
     typename A::Elem s[W], ff[OUT];
-    // limbs -> R' form, as f32_from_limbs
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-        const int32_t* src = in + (size_t)w * NL * n;
-#pragma unroll
-        for (int i = 0; i < T; ++i) {
-            const long long st = base + M::lane_id(i);
-#pragma unroll
-            for (int j = 0; j < NW; ++j) s[w][i][j] = 0;
-#pragma unroll
-            for (int l = 0; l < NL; ++l) {
-                const uint32_t v = st < n ? (uint32_t)src[(size_t)l * n + st] & F32_LIMB_MASK : 0u;
-                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
-                s[w][i][word] |= v << shift;
-                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) s[w][i][word + 1] |= v >> (32 - shift);
-            }
-        }
-        ar.mul_k(s[w], s[w], ar.c.c_in);
-    }
+    for (int w = 0; w < W; ++w) mt_from_limbs<NW, M>(ar, s[w], in + (size_t)w * NL * n, n, base);
     // the input half of the feed-forward sum, taken before the permutation
 #pragma unroll
     for (int i = 0; i < OUT; ++i) {
@@ -92,29 +75,8 @@ F32_FN void jive_mma_warp(int32_t* out, const int32_t* in, long long n, long lon
     for (int o = 0; o < OUT; ++o) {
 #pragma unroll
         for (int j = 0; j < K; ++j) ar.add(ff[o], ff[o], s[o + OUT * j]);
-        // R' form -> canonical limbs, as f32_to_limbs
-        ar.mul_k(ff[o], ff[o], ar.c.c_out);
-        int32_t* dst = out + (size_t)o * NL * n;
-#pragma unroll
-        for (int i = 0; i < T; ++i) {
-            const long long st = base + M::lane_id(i);
-            if (st >= n) continue;
-#pragma unroll
-            for (int l = 0; l < NL; ++l) {
-                const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;
-                uint32_t v = ff[o][i][word] >> shift;
-                if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) v |= ff[o][i][word + 1] << (32 - shift);
-                dst[(size_t)l * n + st] = (int32_t)(v & F32_LIMB_MASK);
-            }
-        }
+        mt_to_limbs<NW, M>(ar, out + (size_t)o * NL * n, n, base, ff[o]);
     }
-}
-
-// Shared memory of a block of `threads`, in words: the constants'
-// fragments, each warp's scratch rows, each thread's window table.
-template <int NW>
-constexpr int jive_mma_smem_words(int threads) {
-    return mt_frag_words<NW> + threads * MMA_ROW_WORDS + INV_ALPHA_TABLE * NW * threads;
 }
 
 #ifdef __CUDACC__
@@ -126,11 +88,11 @@ constexpr int FRAG_WORDS = mma_frag_words<ANEMOI_WORDS>;
 #define JIVE_MMA_BLOCK_WARPS 4
 #endif
 #define MMA_BLOCK (JIVE_MMA_BLOCK_WARPS * MMA_WARP)
-constexpr int SMEM_BYTES = jive_mma_smem_words<ANEMOI_WORDS>(MMA_BLOCK) * 4;  // 45,312 at 8 words, 66,048 at 12
+constexpr int SMEM_BYTES = mt_smem_words<ANEMOI_WORDS>(MMA_BLOCK) * 4;  // 45,312 at 8 words, 66,048 at 12
 
 // The register budget each width is built for, the second bound of
-// __launch_bounds__, counted in blocks of 128 threads an SM (a value v caps
-// a thread at 65,536 / (128 v) registers), as in sponge_mma.cu, from
+// __launch_bounds__, counted in blocks of 128 threads an SM (MMA_MIN_RESIDENT
+// in field32_mma.cuh), as in sponge_mma.cu, from
 // `python3 -m anemoi_tpu_torch.bounds_sweep --sources jive_mma.cu` over 2^20
 // states on an H100 80GB HBM3 at 700 W (PERF.md has the table): 2 for both
 // widths.  Width 2 ran within the sweep's noise (the shipped build against
@@ -146,19 +108,16 @@ constexpr int SMEM_BYTES = jive_mma_smem_words<ANEMOI_WORDS>(MMA_BLOCK) * 4;  //
 #ifndef JIVE_MMA4_MIN_BLOCKS
 #define JIVE_MMA4_MIN_BLOCKS 2
 #endif
-#define MMA_MIN_RESIDENT(v) ((v) * 128 / MMA_BLOCK)
 
 template <int W, int K>
-__global__ void __launch_bounds__(MMA_BLOCK, MMA_MIN_RESIDENT(W == 2 ? JIVE_MMA2_MIN_BLOCKS : JIVE_MMA4_MIN_BLOCKS))
+__global__ void __launch_bounds__(MMA_BLOCK, MMA_MIN_RESIDENT(W == 2 ? JIVE_MMA2_MIN_BLOCKS : JIVE_MMA4_MIN_BLOCKS,
+                                                              MMA_BLOCK))
     jive_mma_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n,
                     const __grid_constant__ Consts c, const uint32_t* __restrict__ frag) {
     static_assert(MMA_BLOCK % MMA_WARP == 0, "an mma takes a whole warp");
-    extern __shared__ __align__(16) uint32_t smem[];
+    extern __shared__ __align__(16) uint32_t smem[];  // mt_smem_words' layout
     uint32_t* sfrag = smem;
-    for (int i = threadIdx.x; i < FRAG_WORDS; i += MMA_BLOCK) {
-        constexpr int R = mma_regs<ANEMOI_WORDS>;
-        sfrag[mt_frag_word<ANEMOI_WORDS>(i / (R * MMA_WARP), i / MMA_WARP % R, i % MMA_WARP)] = frag[i];
-    }
+    mt_copy_fragments<ANEMOI_WORDS>(sfrag, frag, threadIdx.x, MMA_BLOCK);
     __syncthreads();
     const int warp = threadIdx.x / MMA_WARP;
     uint32_t* rows = smem + mt_frag_words<ANEMOI_WORDS> + warp * MMA_THREAD_STATES * MMA_ROW_WORDS;

@@ -24,9 +24,12 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
     per state; its x^(1/alpha) is a 4-bit sliding window whose table lives
     in shared memory, as in the one-thread permutation kernel.
   * With an "mxu" ``mul_impl``, ``permutation`` and ``sponge`` launch
-    ``csrc/sponge_mma.cu`` instead (``permute_mma_kernel``,
-    ``sponge_mma_kernel``): the reduction on the tensor cores, 16 states
-    or messages a warp, each word-sliced over four lanes as in the sponge.
+    ``csrc/sponge_mma.cu`` instead, the reduction on the tensor cores: the
+    sponge ``sponge_mma_kernel``, and the permutation up to
+    ``permute_mma_group_max`` states (the library's crossover, measured on
+    the card) ``permute_mma_kernel``, both one state or message a quad of
+    four lanes (8 a warp, each word-sliced as in the sponge); above it
+    ``permute_mma_thread_kernel``, one state a thread as in the Jive.
 
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
@@ -35,7 +38,8 @@ other.  Each counts its launches in ``<wrapper>.launches``;
 ``permutation.group_launches`` counts those of them that went to the
 four-lane kernel, as the launcher reports the kernel it picked; the
 tensor-core kernels count theirs in ``jive_mma.launches``,
-``permutation_mma.launches`` and ``sponge_mma.launches``.  The kernels
+``permutation_mma.launches`` (and in ``permutation_mma.quad_launches``
+those that went to the quad form) and ``sponge_mma.launches``.  The kernels
 cover every field: each source is built once per word count (8 for the
 20-limb fields, 12 for the 30-limb ones), and a wrapper launches the
 library of its field's ``kernel_words``.
@@ -202,8 +206,9 @@ def permutation_plain(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
 def permutation(inst: InstanceParams, x: torch.Tensor, mul_impl: str | None = None) -> torch.Tensor:
     """The Anemoi permutation of every state: int32 [WIDTH*L, N] -> int32
     [WIDTH*L, N].  A CUDA tensor goes to a kernel (or the call raises): a
-    ``mul_impl`` name that starts with "mxu" to ``permute_mma_kernel``,
-    whose reduction runs on the tensor cores, counted in
+    ``mul_impl`` name that starts with "mxu" to the tensor-core kernels,
+    whose reduction runs on the tensor cores, the quad form up to
+    ``permute_mma_group_max`` states and the thread form above, counted in
     ``permutation_mma.launches``; every other name, and None, to the
     four-lane kernel up to ``permute_group_max`` states and the one-thread
     kernel above.  A CPU tensor goes to ``permutation_plain`` whatever the
@@ -215,9 +220,7 @@ def permutation(inst: InstanceParams, x: torch.Tensor, mul_impl: str | None = No
     if x.shape[1] == 0:
         return torch.empty_like(x)
     if selects_mma(mul_impl):
-        out = torch.empty_like(x)
-        permutation_mma(sponge_mma_library(inst.field.kernel_words).cdll, inst, x, out)
-        return out
+        return permutation_mma(inst, x)
     out, group = _permute(inst, x, -1)
     permutation.launches += 1
     permutation.group_launches += group
@@ -228,15 +231,48 @@ permutation.launches = 0
 permutation.group_launches = 0
 
 
-def permutation_mma(lib: ctypes.CDLL, inst: InstanceParams, x: torch.Tensor, out: torch.Tensor) -> None:
-    """Launches ``permute_mma_kernel`` of `lib` (``csrc/sponge_mma.cu``) on
-    CUDA states into `out`; counted in ``permutation_mma.launches``."""
-    _launch(lib, "anemoi_permute_mma", x, out, inst.width, consts_words(inst).ctypes.data,
-            fragments(inst.field, x.device).data_ptr())
+def permutation_mma(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
+    """Launches the tensor-core permutation (``csrc/sponge_mma.cu``) on
+    CUDA states, the launcher picking the form by N; counted in
+    ``permutation_mma.launches`` and, when the launcher reports the quad
+    form, in ``permutation_mma.quad_launches``."""
+    out, quad = _permute_mma(inst, x, -1)
     permutation_mma.launches += 1
+    permutation_mma.quad_launches += quad
+    return out
 
 
 permutation_mma.launches = 0
+permutation_mma.quad_launches = 0
+
+
+def permute_mma_group_max(words: int) -> int:
+    """The most states for which ``permutation`` with an "mxu" name launches
+    the quad form: ``PERMUTE_MMA_GROUP_MAX`` of the `words`-word library."""
+    return sponge_mma_library(words).cdll.anemoi_permute_mma_group_max()
+
+
+def permutation_mma_with(inst: InstanceParams, x: torch.Tensor, quad: bool) -> torch.Tensor:
+    """The permutation of CUDA states by the named form of the tensor-core
+    kernels, the quad form (``quad``) or the thread form, whatever N: for
+    timing the two against each other and holding each against the plain
+    version.  Not a path of the port, so not counted."""
+    W, L = inst.width, inst.field.n_limbs
+    if not _check(inst, x, W * L):
+        raise ValueError("permutation_mma_with takes a CUDA tensor")
+    return _permute_mma(inst, x, int(quad))[0] if x.shape[1] else torch.empty_like(x)
+
+
+def _permute_mma(inst: InstanceParams, x: torch.Tensor, kernel: int) -> tuple[torch.Tensor, bool]:
+    """Launches ``anemoi_permute_mma`` (``csrc/sponge_mma.cu``) on CUDA
+    states: `kernel` -1 lets the launcher pick the form by N, 1 and 0 name
+    the quad and the thread form.  Returns the output and whether the quad
+    form ran, as the launcher reports it."""
+    out = torch.empty_like(x)
+    launched = ctypes.c_int(-1)
+    _launch(sponge_mma_library(inst.field.kernel_words).cdll, "anemoi_permute_mma", x, out, inst.width, kernel,
+            consts_words(inst).ctypes.data, fragments(inst.field, x.device).data_ptr(), ctypes.pointer(launched))
+    return out, launched.value == 1
 
 
 def permute_group_max(words: int) -> int:
@@ -343,11 +379,15 @@ def launch_counts() -> dict:
     """The wrappers' launch counts now: "jive", "jive_mma" (the tensor-core
     Jive kernel), "permutation" (both integer permutation kernels),
     "four_lane" (those of them that went to the four-lane kernel),
-    "sponge", and "permutation_mma" and "sponge_mma" (the tensor-core
-    permutation and sponge kernels)."""
+    "sponge", "permutation_mma" (the tensor-core permutation's quad form,
+    ``permute_mma_kernel``), "permutation_mma_thread" (its thread form,
+    ``permute_mma_thread_kernel``) and "sponge_mma" (the tensor-core
+    sponge)."""
     return {"jive": jive.launches, "jive_mma": jive_mma.launches, "permutation": permutation.launches,
             "four_lane": permutation.group_launches, "sponge": sponge.launches,
-            "permutation_mma": permutation_mma.launches, "sponge_mma": sponge_mma.launches}
+            "permutation_mma": permutation_mma.quad_launches,
+            "permutation_mma_thread": permutation_mma.launches - permutation_mma.quad_launches,
+            "sponge_mma": sponge_mma.launches}
 
 
 # --------------------------------------------------------------------------
@@ -430,7 +470,8 @@ def sponge_mma_library(words: int, defines: tuple = ()) -> _build.Library:
         "sponge_mma.cu",
         words,
         {
-            "anemoi_permute_mma": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+            "anemoi_permute_mma": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int)],
             "anemoi_sponge_mma": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
         },
         "anemoi_sponge_mma_consts_words",
@@ -438,7 +479,8 @@ def sponge_mma_library(words: int, defines: tuple = ()) -> _build.Library:
     )
     lib = built.cdll
     _declare(lib.anemoi_sponge_mma_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
-    _declare(lib.anemoi_sponge_mma_block_threads, [], ctypes.c_int)
+    _declare(lib.anemoi_sponge_mma_block_threads, [ctypes.c_int], ctypes.c_int)
+    _declare(lib.anemoi_permute_mma_group_max, [], ctypes.c_longlong)
     _check_fragments("sponge_mma.cu", words, lib.anemoi_sponge_mma_frag_words)
     return built
 

@@ -3,7 +3,7 @@ SASS (``cuobjdump -sass``) by kernel, and a comparison of the kernels built
 from two source trees, for a change that must leave some of them as they
 were:
 
-    python -m anemoi_tpu_torch.sass OTHER_CSRC
+    python -m anemoi_tpu_torch.sass [--sources jive_mma.cu,...] [--ptx-diff N] OTHER_CSRC
 
 builds ``jive.cu``, ``sponge.cu``, ``jive_mma.cu`` and ``sponge_mma.cu``
 of this package's ``csrc/`` and of OTHER_CSRC (for example ``csrc/`` of a
@@ -13,22 +13,27 @@ kernels), with the package's nvcc flags, all at once in a temporary
 directory, and prints for every kernel (``jive_kernel``,
 ``permute_kernel``, ``permute_group_kernel``, ``sponge_kernel``,
 ``jive_mma_kernel``, ``permute_mma_kernel``, ``sponge_mma_kernel``,
-``sqr_chain_kernel``, ``mad_loop_kernel``)
+``permute_mma_thread_kernel``, ``sqr_chain_kernel``, ``mad_loop_kernel``)
 "same" when its PTX and its SASS instructions (opcodes, registers,
 operands, in order) are the same in both trees and "changed" otherwise,
 with how many instructions differ and whether the binary encodings differ
-too; a kernel that only this tree has is "new".  For each tensor-core
+too; a kernel that only this tree has is "new".  ``--sources`` builds only
+the sources named; ``--ptx-diff N`` prints, under each kernel whose PTX
+differs, the first N lines of the difference (``ptx_labelled``);
+OTHER_CSRC the package's own ``csrc/`` builds each source twice, to tell
+a change from a build that differs from itself.  For each tensor-core
 kernel (``MMA_KERNELS``) it also prints its registers and spills (ptxas)
-and the instructions of one product (``product_mix`` of ``product_loop``:
-for ``jive_mma_kernel``, whose x^(1/alpha) is the window, a trip of the
-window's loop, one squaring and one product; for the others a trip of the
-ladder, over the products that trip runs): IMMA, IMAD, shuffles, votes
-and the other integer instructions.  Needs nvcc and cuobjdump (the card's
+and the instructions of one product (``product_mix`` of ``product_loop``,
+a trip of the x^(1/alpha) window's loop over the products that trip runs:
+one squaring and one product in the one-state-a-thread kernels, one N-fold
+product of the width's columns in the quad-form ones): IMMA, IMAD,
+shuffles, votes and the other integer instructions.  Needs nvcc and cuobjdump (the card's
 machine).
 """
 
 from __future__ import annotations
 
+import argparse
 import difflib
 import re
 import shutil
@@ -50,9 +55,11 @@ SOURCES = ("jive.cu", "sponge.cu", "jive_mma.cu", "sponge_mma.cu", "microbench.c
 # the word counts a source is built for (-DANEMOI_WORDS); microbench.cu is one library for both
 BUILT_WORDS = {"microbench.cu": (8,)}
 # the tensor-core kernels, by source: their product's reduction runs as mma.sync (IMMA)
-MMA_KERNELS = {"jive_mma.cu": ("jive_mma_kernel",), "sponge_mma.cu": ("permute_mma_kernel", "sponge_mma_kernel")}
-# those of them whose x^(1/alpha) is the 4-bit window (the others run the binary ladder)
-WINDOW_KERNELS = ("jive_mma_kernel",)
+MMA_KERNELS = {"jive_mma.cu": ("jive_mma_kernel",),
+               "sponge_mma.cu": ("permute_mma_kernel", "sponge_mma_kernel", "permute_mma_thread_kernel")}
+# those of them in the quad form (field32_mma.cuh): the columns of a round run side by side, and a squaring is
+# the product by the value itself
+QUAD_KERNELS = ("permute_mma_kernel", "sponge_mma_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -117,37 +124,42 @@ def product_mix(lines: list[str], products: int = 1) -> dict[str, float]:
     return {k: v / products for k, v in mix.items()}
 
 
-def innermost_loop(lines: list[str], holding: str | None = None, least: int = 1) -> list[str]:
+def innermost_loop(lines: list[str], holding: str | None = None, least: int = 1,
+                   without: str | None = None) -> list[str]:
     """The shortest body between a backward branch and its target (of those
-    that hold at least `least` instructions of opcode `holding`, if given):
-    in the sponge kernel, one trip of the x^(1/alpha) ladder, one group
-    product; in a tensor-core kernel, with holding="IMMA", the ladder's trip
-    or the window table's (one product), and with `least` twice a product's
-    IMMAs, the window's (a squaring and a product)."""
+    that hold at least `least` instructions of opcode `holding`, if given,
+    and none of opcode `without`): in the sponge kernel, one trip of the
+    x^(1/alpha) ladder, one group product; in a tensor-core kernel, with
+    holding="IMMA", the window table's trip (one product), with `least`
+    twice a product's IMMAs, the window's trip of a one-state-a-thread
+    kernel (a squaring and a product), and without="STS" that of a
+    quad-form kernel (one product; the table's trip stores its entry)."""
     at = [int(re.search(r"/\*([0-9a-f]{4,})\*/", line).group(1), 16) for line in lines]
     best: list[str] = []
     for off, line in zip(at, lines):
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", line)
         if m and int(m.group(1), 16) < off:
             body = [x for o, x in zip(at, lines) if int(m.group(1), 16) <= o <= off]
-            if holding and sum(bool((op := OPCODE.search(x)) and op.group(1) == holding) for x in body) < least:
+            ops = [op.group(1) for x in body if (op := OPCODE.search(x))]
+            if (holding and ops.count(holding) < least) or (without and without in ops):
                 continue
             best = body if not best or len(body) < len(best) else best
     return best
 
 
 def product_loop(kernel: str, lines: list[str]) -> tuple[list[str], int]:
-    """(the loop whose trip ``mma_report`` counts, the products in a trip)
-    of tensor-core kernel<width, ...>'s SASS lines.  Under the window
-    (WINDOW_KERNELS): the shortest loop holding twice the IMMAs of the
-    shortest loop that holds any (the table's trip, one product), that is
-    the window's trip, one squaring and one product.  Under the ladder: the
-    shortest loop holding an IMMA, one product of the width's columns."""
+    """(the x^(1/alpha) window's trip, the products in it) of tensor-core
+    kernel<width, ...>'s SASS lines.  In the quad form (QUAD_KERNELS), the
+    shortest loop holding an IMMA and no shared-memory store (the table's
+    trip stores its entry): one product of the width's columns side by
+    side, a squaring and a product sharing its code.  Otherwise the shortest
+    loop holding twice the IMMAs of the shortest loop that holds any (the
+    table's trip, one product): one squaring and one product."""
     name, args = kernel.split("<")
-    if name in WINDOW_KERNELS:
-        per = int(product_mix(innermost_loop(lines, "IMMA"))["IMMA"])
-        return innermost_loop(lines, "IMMA", least=2 * max(per, 1)), 2
-    return innermost_loop(lines, "IMMA"), int(args.split(",")[0].rstrip(">")) // 2
+    if name in QUAD_KERNELS:
+        return innermost_loop(lines, "IMMA", without="STS"), int(args.split(",")[0].rstrip(">")) // 2
+    per = int(product_mix(innermost_loop(lines, "IMMA"))["IMMA"])
+    return innermost_loop(lines, "IMMA", least=2 * max(per, 1)), 2
 
 
 def kernel_counts(lib: Path) -> dict[str, dict[str, int]]:
@@ -159,8 +171,8 @@ def kernel_counts(lib: Path) -> dict[str, dict[str, int]]:
 
 def compare(name: str, this: tuple[dict, dict], other: tuple[dict, dict]) -> str:
     """One kernel of two builds, each (SASS, PTX) functions by mangled name:
-    "same" (PTX alike but for the basic-block labels, which are numbered
-    across the module, and SASS instructions alike, whatever their
+    "same" (PTX alike but for the numbers of its labels and virtual
+    registers, ``ptx_labelled``, and SASS instructions alike, whatever their
     encodings), "changed" (with how many instruction lines differ) or
     "new"."""
     (sass_a, ptx_a), (sass_b, ptx_b) = this, other
@@ -169,12 +181,42 @@ def compare(name: str, this: tuple[dict, dict], other: tuple[dict, dict]) -> str
     a, b = ([re.sub(r"/\*.*?\*/", "", line).strip() for line in f[name]] for f in (sass_a, sass_b))
     changed = sum(line[:1] in "+-" and not line.startswith(("+++", "---"))
                   for line in difflib.unified_diff(b, a, lineterm="", n=0))
-    label = lambda lines: [re.sub(r"\$L__BB\d+_", "$L__BB_", line) for line in lines or ()]
-    same_ptx = label(ptx_a.get(name)) == label(ptx_b.get(name))  # blocks are numbered across the module
+    same_ptx = ptx_labelled(ptx_a.get(name)) == ptx_labelled(ptx_b.get(name))
     return (f"{kernel_name(name)}: {'same' if same_ptx and a == b else 'changed'}; PTX "
             f"{'the same' if same_ptx else 'differs'}; SASS {len(a)} and {len(b)} instructions, "
             + ("the same" if a == b else f"{changed} lines differ")
             + ("" if sass_a[name] == sass_b[name] else " (their encodings differ)"))
+
+
+def ptx_labelled(lines: list[str] | None) -> list[str]:
+    """A function's PTX lines with its basic-block labels numbered alike
+    (they are numbered across the module) and its virtual registers
+    renamed in the order they first appear, their declared counts left out:
+    nvcc at 12 words numbers them differently from one build of the same
+    source to the next (``jive_mma_kernel<2,2>``'s %r12105 in one build is
+    %r12107 in its twin)."""
+    names: dict[str, str] = {}
+    counts: dict[str, int] = {}
+
+    def rename(m: re.Match) -> str:
+        if m.group(0) not in names:
+            names[m.group(0)] = f"%{m.group(1)}_{counts.get(m.group(1), 0)}"
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+        return names[m.group(0)]
+
+    out = []
+    for line in lines or ():
+        line = re.sub(r"\$L__BB\d+_", "$L__BB_", line)
+        line = re.sub(r"(%[a-z]+)<\d+>", r"\1<>", line)
+        out.append(re.sub(r"%(rd|rs|r|p|fd|f|h)\d+\b", rename, line))
+    return out
+
+
+def ptx_diff(name: str, this: tuple[dict, dict], other: tuple[dict, dict], limit: int) -> list[str]:
+    """The first `limit` lines of the unified difference of one kernel's
+    PTX (``ptx_labelled``), from the other build's to this one's."""
+    diff = difflib.unified_diff(ptx_labelled(other[1].get(name)), ptx_labelled(this[1].get(name)), lineterm="", n=1)
+    return [line for line, _ in zip(diff, range(limit))]
 
 
 def _build_one(csrc: Path, source: str, words: int, out: Path) -> tuple[dict, dict]:
@@ -190,23 +232,29 @@ def _build_one(csrc: Path, source: str, words: int, out: Path) -> tuple[dict, di
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) != 1:
-        print(__doc__, file=sys.stderr)
-        return 2
-    trees = (_build.CSRC, Path(argv[0]).resolve())
-    jobs = [(t, s, w) for t in range(2) for s in SOURCES for w in BUILT_WORDS.get(s, (8, 12))
+    ap = argparse.ArgumentParser(prog="python -m anemoi_tpu_torch.sass", description=__doc__.split("\n\n")[0])
+    ap.add_argument("other_csrc", help="the csrc/ directory of the other tree")
+    ap.add_argument("--sources", default=",".join(SOURCES), help="comma-separated sources to build")
+    ap.add_argument("--ptx-diff", type=int, default=0, help="lines of each differing kernel's PTX difference")
+    args = ap.parse_args(argv)
+    sources = [s for s in SOURCES if s in args.sources.split(",")]
+    trees = (_build.CSRC, Path(args.other_csrc).resolve())
+    jobs = [(t, s, w) for t in range(2) for s in sources for w in BUILT_WORDS.get(s, (8, 12))
             if (trees[t] / s).exists()]
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(jobs)) as pool:
         dirs = [Path(tmp) / "this", Path(tmp) / "other"]
         for d in dirs:
             d.mkdir()
         built = dict(zip(jobs, pool.map(lambda j: _build_one(trees[j[0]], j[1], j[2], dirs[j[0]]), jobs)))
-    for source in SOURCES:
+    for source in sources:
         for words in BUILT_WORDS.get(source, (8, 12)):
             this, other = built[(0, source, words)], built.get((1, source, words), ({}, {}))
             label = source if source in BUILT_WORDS else f"{words} words"
             for name in sorted(this[0], key=kernel_name):
                 print(f"{label}, {compare(name, this, other)}", flush=True)
+                if args.ptx_diff and name in other[0]:
+                    for line in ptx_diff(name, this, other, args.ptx_diff):
+                        print(f"    {line}", flush=True)
             if source in MMA_KERNELS:
                 print_mma_report(source, words)
     return 0

@@ -8,8 +8,9 @@ the kernel launches it made (a JSON line) and "ALL PASS" (exit 0) or
 
   * for anemoi_2_1 and anemoi_4_3: the permutation at 128 states (the
     four-lane kernel) and at 16,384 (above ``permute_group_max``: the
-    one-thread kernel; under an "mxu" name both run the tensor-core
-    kernel), and Jive-k at 128 states (k = 2 and 4);
+    one-thread kernel; under an "mxu" name the tensor-core kernels' quad
+    form and, above ``permute_mma_group_max``, their thread form), and
+    Jive-k at 128 states (k = 2 and 4);
   * the anemoi_4_3 sponge over 32 messages of E = 7 elements (two rate
     blocks and a tail);
   * the anemoi_2_1 Merkle root over 2^10 leaves, with its levels.
@@ -20,7 +21,7 @@ every level of the root) and every lane against the native oracle
 (``ff/native.py``, C++ on the host's cores; around it, the sponge's rate
 adds and sigma in Python ints), and checks that the permutation ran the
 kernel ``permute_group_max`` names (or, under an "mxu" name, the
-tensor-core one).  Inputs are canonical
+tensor-core form ``permute_mma_group_max`` names).  Inputs are canonical
 (``limb_ops.random_canonical``, seeded).
 
 Unlike ``verify_tpu.py``, whose root compares the fused kernel with the
@@ -37,8 +38,8 @@ call ``cuda_backend.permutation`` and ``cuda_backend.sponge`` with the
 kernels' product on the TPU's matrix unit, their default) runs every check
 on the tensor-core kernels: Jive and the root on ``csrc/jive_mma.cu``, the
 permutation and the sponge on ``csrc/sponge_mma.cu``, whose launches the
-JSON line counts as "jive_mma", "permutation_mma" and "sponge_mma"; the
-other names change nothing.
+JSON line counts as "jive_mma", "permutation_mma" (the quad form),
+"permutation_mma_thread" and "sponge_mma"; the other names change nothing.
 """
 
 from __future__ import annotations
@@ -108,7 +109,11 @@ class FieldCheck:
         if self.device.type == "cpu":
             kernel, routed = "plain version", True
         elif selects_mma(self.mul_impl):
-            kernel, routed = "tensor-core kernel", after["permutation_mma"] == before["permutation_mma"] + 1
+            quad = after["permutation_mma"] > before["permutation_mma"]
+            kernel = f"tensor-core kernel, {'quad' if quad else 'thread'} form"
+            routed = (after["permutation_mma"] + after["permutation_mma_thread"]
+                      == before["permutation_mma"] + before["permutation_mma_thread"] + 1) and quad == (
+                n <= cuda_backend.permute_mma_group_max(inst.field.kernel_words))
         else:
             kernel = "four-lane kernel" if four_lane else "one-thread kernel"
             routed = four_lane == (n <= cuda_backend.permute_group_max(inst.field.kernel_words))
@@ -171,7 +176,8 @@ def kernel_launches(words: int, delta: dict) -> dict:
     w = "_w12" if words == 12 else ""
     return {f"jive{w}": delta["jive"], f"jive_mma{w}": delta["jive_mma"], f"permutation{w}": delta["four_lane"],
             f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"],
-            f"permutation_mma{w}": delta["permutation_mma"], f"sponge_mma{w}": delta["sponge_mma"]}
+            f"permutation_mma{w}": delta["permutation_mma"], f"permutation_mma_thread{w}": delta["permutation_mma_thread"],
+            f"sponge_mma{w}": delta["sponge_mma"]}
 
 
 def main(argv=None) -> int:

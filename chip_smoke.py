@@ -162,21 +162,27 @@ and BLS12-381 anemoi_4_3.  Phases, each printed with its elapsed seconds:
      257 (both ends) against the plain version, and the other four 20-limb
      fields' 2_1, every lane against the native oracle;
  19. the tensor-core permutation and sponge (``csrc/sponge_mma.cu``,
-     ``mul_impl="mxuf"``; run before 15): their SASS at 8 and 12 words
-     (IMMA in each, or the phase fails; registers, spills, blocks per SM,
-     the instructions of one product); the main path, each word count's run
-     with every launch count set to 0 just before and read just after
-     (``cuda_backend.permutation`` and ``sponge`` with the name: Vesta and
-     BLS12-381 4_3 permutations of 4,096 and 65,536 states, the sponge over
-     4,096 x 10 KB messages of Vesta 4_3 and 2_1 and BLS12-381 4_3; only
-     ``permutation_mma`` and ``sponge_mma`` launches); each timed in turns
-     with the integer kernel the port runs without the name (CUDA events)
-     beside its bound (the IMADs left and the u8 multiply-adds); every lane
-     of each against the integer kernel, the ragged 4,099 states among
-     them and 4,099 messages of rate, 2 rate and rate + 1 elements, and 257
-     lanes at both ends against the plain version; beside those checks,
-     ``python3 -m anemoi_tpu_torch.tools.verify_cuda --mul-impl mxuf``
-     (a process of its own: ALL PASS, the new kernels' launches above 0);
+     ``mul_impl="mxuf"``; run before 15): the SASS of its three kernels
+     at 8 and 12 words (IMMA in each, or the phase fails; registers,
+     spills, blocks per SM, the instructions of one window trip); the main
+     path, each word count's run with every launch count set to 0 just
+     before and read just after (``cuda_backend.permutation`` and
+     ``sponge`` with the name: Vesta and BLS12-381 4_3 permutations of
+     4,096 states, the quad form, and 65,536, the thread form, each on its
+     side of ``PERMUTE_MMA_GROUP_MAX`` or the phase fails, and the sponge
+     over 4,096 x 10 KB messages of Vesta 4_3 and 2_1 and BLS12-381 4_3;
+     only ``permutation_mma``, ``permutation_mma_thread`` and
+     ``sponge_mma`` launches); each timed in turns with the integer kernel
+     the port runs without the name (CUDA events) beside its bound (the
+     IMADs left and the u8 multiply-adds); the crossover: both forms
+     at 4,096, 8,192, 16,384 and 65,536 states, each output held, the
+     largest N at which the quad form wins beside the library's; every lane
+     of each against the integer
+     kernel, the ragged 4,099 states among them (both forms there) and
+     4,099 messages of rate, 2 rate and rate + 1 elements, and 257 lanes at
+     both ends against the plain version; beside those checks, ``python3
+     -m anemoi_tpu_torch.tools.verify_cuda --mul-impl mxuf`` (a process of
+     its own: ALL PASS, each new kernel's launches above 0);
  15. one JSON line of kernels: launches, error, times, bound, with the
      fourth and fifth slices' launches beside; every bound beside the IMAD
      rate that phase 14 measured; the native oracle's seconds.
@@ -448,8 +454,8 @@ def main() -> int:
     plain_lanes = {}  # words: the lanes of the 4_3 permutation's plain call, phases 6 and 9
     max_err = dict.fromkeys(["jive", "permutation", "permutation_thread", "sponge", "jive_w12", "permutation_w12",
                              "permutation_thread_w12", "sponge_w12", "sqr_chain", "mad_loop", "jive_mma",
-                             "jive_mma_w12", "permutation_mma", "permutation_mma_w12", "sponge_mma",
-                             "sponge_mma_w12"], 0)
+                             "jive_mma_w12", "permutation_mma", "permutation_mma_w12", "permutation_mma_thread",
+                             "permutation_mma_thread_w12", "sponge_mma", "sponge_mma_w12"], 0)
 
     def canonical_states(inst, n):
         """int32 [WIDTH, L, n] random canonical states on the card."""
@@ -536,9 +542,11 @@ def main() -> int:
         return ("permutation" if group else "permutation_thread") + ("_w12" if words == 12 else "")
 
     def mma_key(kind: str, words: int) -> str:
-        """The kernels line's name of a tensor-core kernel, phase 19's: "permutation_mma" or "sponge_mma", with
-        "_w12" at 12 words."""
-        return f"{kind}_mma" + ("_w12" if words == 12 else "")
+        """The kernels line's name of a tensor-core kernel, phase 19's: for `kind` "permutation" (the quad form),
+        "permutation_thread" or "sponge", "permutation_mma", "permutation_mma_thread" or "sponge_mma", with "_w12" at
+        12 words."""
+        head, _, tail = kind.partition("_")
+        return f"{head}_mma" + (f"_{tail}" if tail else "") + ("_w12" if words == 12 else "")
 
     def ends(n: int):
         """N_PLAIN lanes at both ends of n (all of them when n is smaller)."""
@@ -1797,25 +1805,30 @@ def main() -> int:
               f"beside the integer kernels, holds, the verifier")
         t19 = time.perf_counter()
         since19 = lambda: f"{time.perf_counter() - t19:.1f} s into the phase"
-        mma19 = {"ms": {}, "int_ms": {}, "bound": {}, "perm_plain": {}, "sponge_plain_ms": {}, "launches": {}}
+        mma19 = {"ms": {}, "int_ms": {}, "bound": {}, "perm_plain": {}, "sponge_plain_ms": {}, "launches": {},
+                 "sweep": {}}
+        mma_top = {w: cuda_backend.permute_mma_group_max(w) for w in sponge_mma_libs}
         for words, b in sponge_mma_libs.items():
             for kernel, r in sorted(sass.mma_report(b).items()):
-                width = int(kernel.split("<")[1].rstrip(">"))
+                name, width = kernel.split("<")[0], int(kernel.split("<")[1].rstrip(">"))
+                which = ("permute_mma_kernel", "sponge_mma_kernel", "permute_mma_thread_kernel").index(name)
+                trip = f"{width // 2}-fold product" if name in sass.QUAD_KERNELS else "squaring and product"
                 print(f"  {words} words, {kernel}: {r['registers']} registers, spills {r['spill_store']}/"
-                      f"{r['spill_load']} bytes, "
-                      f"{b.cdll.anemoi_sponge_mma_blocks_per_sm(kernel.startswith('sponge'), width)} blocks of "
-                      f"{b.cdll.anemoi_sponge_mma_block_threads()} threads per SM; SASS "
+                      f"{r['spill_load']} bytes, {b.cdll.anemoi_sponge_mma_blocks_per_sm(which, width)} blocks of "
+                      f"{b.cdll.anemoi_sponge_mma_block_threads(which)} threads per SM; SASS "
                       f"{r['whole']['instructions']:g} instructions, IMMA {r['whole']['IMMA']:g}; a product (the "
-                      f"ladder's trip over its {width // 2}): " + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()),
-                      flush=True)
+                      f"window's trip, one {trip}, over its products): "
+                      + ", ".join(f"{k} {v:g}" for k, v in r["product"].items()), flush=True)
                 if not r["whole"]["IMMA"]:
                     fail(f"{kernel} at {words} words has no IMMA instruction")
+        print(f"  the permutation launches its quad form up to {mma_top[8]} states at 8 words and {mma_top[12]} at 12 "
+              f"(PERMUTE_MMA_GROUP_MAX), its thread form above", flush=True)
 
         def zero_counts() -> None:
             for counter in (cuda_backend.jive, cuda_backend.jive_mma, cuda_backend.permutation, cuda_backend.sponge,
                             cuda_backend.permutation_mma, cuda_backend.sponge_mma):
                 counter.launches = 0
-            cuda_backend.permutation.group_launches = 0
+            cuda_backend.permutation.group_launches = cuda_backend.permutation_mma.quad_launches = 0
 
         def in_turns(kernel, mma_kernel, reps: int) -> tuple[float, float]:
             """The two calls timed with CUDA events in turns kernel, mma, mma, kernel, `reps` calls a turn, after
@@ -1865,9 +1878,14 @@ def main() -> int:
                   + ", ".join(f"{c[0]}/{c[1]} {n}" for c, n in perms) + " states and the sponge over " + ", ".join(
                       f"{f}/{i}" for f, i in sponges) + f" x {N_MSGS} x {MSG_BYTES} bytes: launches {counts}",
                   flush=True)
-            others = {k: v for k, v in counts.items() if k not in ("permutation_mma", "sponge_mma") and v}
-            if counts["permutation_mma"] != len(perms) or counts["sponge_mma"] != len(sponges) or others:
+            others = {k: v for k, v in counts.items()
+                      if k not in ("permutation_mma", "permutation_mma_thread", "sponge_mma") and v}
+            quad = sum(n <= mma_top[words] for _, n in perms)
+            if (counts["permutation_mma"] != quad or counts["permutation_mma_thread"] != len(perms) - quad
+                    or counts["sponge_mma"] != len(sponges) or others):
                 fail(f"the mxu path at {words} words took launches {counts}")
+            print(f"  each permutation launched its form on its side of the crossover ({mma_top[words]} states): "
+                  f"{quad} quad form, {len(perms) - quad} thread form", flush=True)
         print(f"  ({since19()})", flush=True)
 
         # in turns with the integer kernel the port runs without the name, the card to itself
@@ -1881,9 +1899,11 @@ def main() -> int:
                 key = (field, n)
                 mma19["ms"][key], mma19["int_ms"][key] = t_mma, t_int
                 b = mma19["bound"][key] = mma_bound(inst, n, n * 2 * inst.width * L * 4)
+                form = "quad" if n <= mma_top[words] else "thread"
                 print(f"  {field}/{iname} permutation, {n} states ({words} words; {smi}; CUDA events, "
                       f"{MMA_PERM_REPS} calls a turn after a warm-up, in turns integer, mma, mma, integer): "
-                      f"tensor-core kernel {t_mma:.3f} ms, {'four-lane' if group else 'one-thread'} kernel "
+                      f"tensor-core kernel ({form} form) {t_mma:.3f} ms, "
+                      f"{'four-lane' if group else 'one-thread'} kernel "
                       f"{t_int:.3f} ms ({t_int / t_mma:.3f}x); bound {b['bound_ms']:.3f} ms by {b['unit']} "
                       f"({b['imads']} IMADs left a permutation, {b['imad_ms']:.3f} ms; {b['macs']} u8 MACs, "
                       f"{b['mac_ms']:.3f} ms; bytes {b['bytes_ms']:.4f} ms): kernel at {b['bound_ms'] / t_mma:.1%} "
@@ -1898,10 +1918,35 @@ def main() -> int:
             b = mma19["bound"][case] = mma_bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
             print(f"  {case[0]}/{case[1]} sponge, {N_MSGS} messages of {E} elements ({perms} permutations each; "
                   f"{inst.field.kernel_words} words; {smi}; CUDA events, {MMA_SPONGE_REPS} call a turn after a "
-                  f"warm-up, in turns): tensor-core kernel {t_mma:.3f} ms, sponge_kernel {t_int:.3f} ms "
+                  f"warm-up, in turns): tensor-core kernel {t_mma:.3f} ms, sponge_kernel "
+                  f"{t_int:.3f} ms "
                   f"({t_int / t_mma:.3f}x); bound {b['bound_ms']:.3f} ms by {b['unit']} ({b['imad_ms']:.3f} ms of "
                   f"IMADs, {b['mac_ms']:.3f} ms of u8 MACs): kernel at {b['bound_ms'] / t_mma:.1%} of it "
                   f"({since19()})", flush=True)
+
+        # the crossover: both forms at each N of PERM_SWEEP, each output held against the main path's (a prefix of
+        # its N_MSGS_FILL states, held below against the integer kernel)
+        for field, iname in MMA_PERMS:
+            inst = get_instance(field, iname)
+            top, x, want = mma_top[inst.field.kernel_words], perm_in[field][N_MSGS_FILL], outs[(field, N_MSGS_FILL)]
+            times = mma19["sweep"][field] = {}
+            print(f"  the crossover, {field}/{iname} ({MMA_PERM_REPS} calls of each form after a warm-up, CUDA events; "
+                  f"{smi}):\n    N | quad form ms | thread form ms | thread / quad | permutation() runs", flush=True)
+            for n in PERM_SWEEP:
+                xn = x[:, :n].contiguous()
+                for quad in (True, False):
+                    held(cuda_backend.permutation_mma_with(inst, xn, quad), want[:, :n], f"{field}/{iname} "
+                         f"permutation, {n} states, {'quad' if quad else 'thread'} form, against the main path's",
+                         mma_key("permutation" if quad else "permutation_thread", inst.field.kernel_words))
+                t = times[n] = {q: mb.event_ms(lambda: cuda_backend.permutation_mma_with(inst, xn, q), MMA_PERM_REPS)
+                                for q in (True, False)}
+                print(f"    {n} | {t[True]:.3f} | {t[False]:.3f} | {t[False] / t[True]:.3f} | "
+                      f"{'quad' if n <= top else 'thread'} form", flush=True)
+            wins = [n for n in PERM_SWEEP if times[n][True] < times[n][False]]
+            best = max(wins) if wins else None
+            print(f"  the largest N at which the quad form wins: {best}; the library's crossover "
+                  f"(PERMUTE_MMA_GROUP_MAX): {top}, {'the same' if best == top else 'DIFFERS'} ({since19()})",
+                  flush=True)
 
         # the verifier with the name, a process of its own, beside this process's checks
         verify_mma = run_module("anemoi_tpu_torch.tools.verify_cuda", "--mul-impl", MMA_IMPL, "--fields",
@@ -1912,12 +1957,18 @@ def main() -> int:
             for field, iname in MMA_PERMS:
                 inst = get_instance(field, iname)
                 key = mma_key("permutation", inst.field.kernel_words)
+                thread_key = mma_key("permutation_thread", inst.field.kernel_words)
                 top = crossover[inst.field.kernel_words]
                 outs[(field, N_CHECK)] = cuda_backend.permutation(inst, perm_in[field][N_CHECK], MMA_IMPL)
                 ns = (*MMA_PERM_NS, N_CHECK)
                 for n in ns:
                     held(outs[(field, n)], cuda_backend.permutation_with(inst, perm_in[field][n], n <= top),
-                         f"{field}/{iname} permutation, {n} states, {MMA_IMPL}, against the integer kernel", key)
+                         f"{field}/{iname} permutation, {n} states, {MMA_IMPL}, against the integer kernel",
+                         key if n <= mma_top[inst.field.kernel_words] else thread_key)
+                for quad in (True, False):
+                    held(cuda_backend.permutation_mma_with(inst, perm_in[field][N_CHECK], quad), outs[(field, N_CHECK)],
+                         f"{field}/{iname} permutation, {N_CHECK} states, {'quad' if quad else 'thread'} form, "
+                         f"against the main path's", key if quad else thread_key)
                 cols = torch.cat([ends(n) for n in ns]).unique()
                 x = perm_in[field][N_MSGS_FILL]
                 plain_ms, plain = host_time_ms(lambda: cuda_backend.permutation_plain(inst, x[:, cols.to(dev)]
@@ -1927,10 +1978,11 @@ def main() -> int:
                 for n in ns:
                     c = ends(n)
                     held(outs[(field, n)][:, c.to(dev)], plain[:, torch.tensor([at[int(i)] for i in c], device=dev)],
-                         f"{field}/{iname} permutation, {n} states, {MMA_IMPL}, against the plain version", key)
+                         f"{field}/{iname} permutation, {n} states, {MMA_IMPL}, against the plain version",
+                         key if n <= mma_top[inst.field.kernel_words] else thread_key)
                 print(f"  {field}/{iname} permutation at {', '.join(map(str, ns))} states: every lane equal to the "
-                      f"integer kernel's, {N_PLAIN} at both ends of each to the plain version ({len(cols)} lanes, "
-                      f"{plain_ms / 1e3:.2f} s) ({since19()})", flush=True)
+                      f"integer kernel's, both forms at {N_CHECK} equal, {N_PLAIN} at both ends of each to the plain "
+                      f"version ({len(cols)} lanes, {plain_ms / 1e3:.2f} s) ({since19()})", flush=True)
             for case in MMA_SPONGES:
                 inst = get_instance(*case)
                 key = mma_key("sponge", inst.field.kernel_words)
@@ -1963,7 +2015,8 @@ def main() -> int:
         reported = json.loads([line for line in lines if line.startswith("launches: ")][-1].split(": ", 1)[1])
         mma19["verify_launches"] = reported
         if not lines[-1].endswith("ALL PASS") or not all(reported[k] > 0 for k in (
-                "permutation_mma", "sponge_mma", "permutation_mma_w12", "sponge_mma_w12")):
+                "permutation_mma", "permutation_mma_thread", "sponge_mma", "permutation_mma_w12",
+                "permutation_mma_thread_w12", "sponge_mma_w12")):
             fail(f"verify_cuda --mul-impl {MMA_IMPL}: {lines[-1]!r}, launches {reported}")
         print(f"  python3 -m anemoi_tpu_torch.tools.verify_cuda --mul-impl {MMA_IMPL} --fields vesta,bls12_381 (a "
               f"process, beside these checks): {lines[-1]}; launches {reported} ({since19()})", flush=True)
@@ -2082,19 +2135,21 @@ def main() -> int:
                   ms_bls12_377=mma["ms"]["bls12_377"], jive_kernel_ms_bls12_377=mma["jive_ms"]["bls12_377"],
                   bound_ms_bls12_377=mma["bound"]["bls12_377"]["bound_ms"], plain_lanes=N_PLAIN,
                   plain_instance="bls12_381/anemoi_2_1", oracle_lanes=N_ORACLE_FULL, build_s=mma_libs[12].build_seconds),
-            *(entry(mma_key("permutation", words), "anemoi_tpu_torch/csrc/sponge_mma.cu",
-                    "anemoi_tpu/ff/pallas_backend.py:430", mma19["launches"][words]["permutation_mma"],
-                    mma19["ms"][(field, N_MSGS)], mma19["perm_plain"][field][0], mma19["bound"][(field, N_MSGS)],
-                    words=words, mul_impl=MMA_IMPL, kernel="permute_mma_kernel", instance=f"{field}/anemoi_4_3",
-                    lanes=N_MSGS, int_kernel="permute_group_kernel", int_kernel_ms=mma19["int_ms"][(field, N_MSGS)],
-                    bound_unit=mma19["bound"][(field, N_MSGS)]["unit"],
-                    ms_65536=mma19["ms"][(field, N_MSGS_FILL)],
-                    int_kernel_ms_65536=mma19["int_ms"][(field, N_MSGS_FILL)],
-                    bound_ms_65536=mma19["bound"][(field, N_MSGS_FILL)]["bound_ms"],
+            *(entry(mma_key(kind, words), "anemoi_tpu_torch/csrc/sponge_mma.cu",
+                    "anemoi_tpu/ff/pallas_backend.py:430",
+                    mma19["launches"][words][mma_key(kind, 8)],
+                    mma19["ms"][(field, n)], mma19["perm_plain"][field][0], mma19["bound"][(field, n)],
+                    words=words, mul_impl=MMA_IMPL, kernel=kernel, instance=f"{field}/anemoi_4_3", lanes=n,
+                    int_kernel="permute_group_kernel" if n <= crossover[words] else "permute_kernel",
+                    int_kernel_ms=mma19["int_ms"][(field, n)], bound_unit=mma19["bound"][(field, n)]["unit"],
+                    crossover=mma_top[words],
+                    sweep={m: {"quad_ms": t[True], "thread_ms": t[False]} for m, t in mma19["sweep"][field].items()},
                     plain_lanes=mma19["perm_plain"][field][1],
-                    verify_launches=mma19["verify_launches"][mma_key("permutation", words)],
+                    verify_launches=mma19["verify_launches"][mma_key(kind, words)],
                     build_s=sponge_mma_libs[words].build_seconds)
-              for field, words in (("vesta", 8), ("bls12_381", 12))),
+              for field, words in (("vesta", 8), ("bls12_381", 12))
+              for kind, kernel, n in (("permutation", "permute_mma_kernel", N_MSGS),
+                                      ("permutation_thread", "permute_mma_thread_kernel", N_MSGS_FILL))),
             *(entry(mma_key("sponge", words), "anemoi_tpu_torch/csrc/sponge_mma.cu",
                     "anemoi_tpu/ff/pallas_backend.py:610", mma19["launches"][words]["sponge_mma"],
                     mma19["ms"][(field, "anemoi_4_3")], mma19["sponge_plain_ms"][(field, "anemoi_4_3")],

@@ -1,15 +1,15 @@
 """The tensor-core Montgomery product of csrc/field32_mma.cuh and the Jive
 of csrc/jive_mma.cu, built for the host with g++.
 
-On the card the tensor-core permutation and sponge hold 16 states a warp,
-two on each quad of four lanes, and the reduction's two products by
-constants run as mma.sync on the tensor cores; here the header's HostWarp
-policy holds the whole warp in one object
-and computes each mma from its definition over the 32 lanes' fragment
-registers, so the test runs the statements the kernel runs.  Checked: the
-emulated mma against a direct integer matrix product; the product
-(mma_mont_mul_n, alone and two side by side: the tensor-core permutation
-and sponge's) against f32_mont_mul and f32_mont_sqr and Python ints on
+On the card the quad form of the tensor-core permutation and sponge holds
+8 states a warp, one on each quad of four lanes, and the reduction's two
+products by constants run as mma.sync on the tensor cores; here the
+header's HostWarp policy holds the whole warp in one object and computes
+each mma from its definition over the 32 lanes' fragment registers, so the
+test runs the statements the kernel runs.  Checked: the emulated mma
+against a direct integer matrix product; the quad form's product
+(mma_mont_mul_n, alone and two side by side, as the permutation's two
+columns run) against f32_mont_mul and f32_mont_sqr and Python ints on
 10,000 random canonical pairs of each of the 7 fields and of 2^256 - 189
 and 2^384 - 317 (no spare top bit), with the edge values; the Jive of
 jive_mma.cu's warp (one state a thread, tests/test_torch_jive_mma_thread.py
@@ -39,17 +39,17 @@ _SHIM = r"""
 #include <stddef.h>
 #include "jive_mma.cu"
 #define BY_WORDS(f, ...) (words == 8 ? f<8>(__VA_ARGS__) : f<12>(__VA_ARGS__))
-template <int NW> using E = uint32_t[2][MMA_WARP][NW / 4];
-// value s of a warp's 16 (word j at v[s * NW + j]) <-> the element: state s is row s, quad s % 8, half s / 8
+template <int NW> using E = uint32_t[MMA_WARP][NW / 4];
+// value s of a warp's 8 (word j at v[s * NW + j]) <-> the element: state s is row s, quad s
 template <int NW> void to_elem(E<NW>& e, const uint32_t* v) {
     for (int s = 0; s < MMA_STATES; ++s)
         for (int t = 0; t < 4; ++t)
-            for (int j = 0; j < NW / 4; ++j) e[s / 8][4 * (s % 8) + t][j] = v[s * NW + t * (NW / 4) + j];
+            for (int j = 0; j < NW / 4; ++j) e[4 * s + t][j] = v[s * NW + t * (NW / 4) + j];
 }
 template <int NW> void from_elem(uint32_t* v, const E<NW>& e) {
     for (int s = 0; s < MMA_STATES; ++s)
         for (int t = 0; t < 4; ++t)
-            for (int j = 0; j < NW / 4; ++j) v[s * NW + t * (NW / 4) + j] = e[s / 8][4 * (s % 8) + t][j];
+            for (int j = 0; j < NW / 4; ++j) v[s * NW + t * (NW / 4) + j] = e[4 * s + t][j];
 }
 template <int NW> void mul_warps(uint32_t* r, const uint32_t* a, const uint32_t* b, int warps, int pairs,
                                  const uint32_t* p, const uint32_t* frag) {
@@ -75,9 +75,8 @@ template <int NW> void f32mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
 // jive_mma.cu's warp (32 states, MmaThreadArith) over its shared memory's host counterparts: the
 // fragments lane-major (mt_frag_word), the warp's scratch rows, its threads' window tables (stride 32)
 template <int NW> void jive_n(int32_t* out, const int32_t* in, long long n, int width, int k, const void* consts, const uint32_t* frag) {
-    constexpr int R = mma_regs<NW>;
     static uint32_t lanes[mt_frag_words<NW>], rows[MMA_THREAD_STATES * MMA_ROW_WORDS], tab[INV_ALPHA_TABLE * NW * MMA_WARP];
-    for (int i = 0; i < mma_frag_words<NW>; ++i) lanes[mt_frag_word<NW>(i / (R * MMA_WARP), i / MMA_WARP % R, i % MMA_WARP)] = frag[i];
+    mt_copy_fragments<NW>(lanes, frag, 0, 1);
     const MmaThreadArith<NW, HostWarp> ar{*(const AnemoiConsts<NW>*)consts, lanes, rows, tab, MMA_WARP};
     for (long long base = 0; base < n; base += MMA_THREAD_STATES) {
         if (width == 2) jive_mma_warp<2, 2, NW, HostWarp>(out, in, n, base, ar);
@@ -143,7 +142,7 @@ def test_emulated_mma(lib, k):
 
 @pytest.mark.parametrize("prime", PRIMES, ids=[f"{p.bit_length()}b{i}" for i, p in enumerate(PRIMES)])
 def test_reduction_matches_f32(lib, prime):
-    """mma_mont_mul_n (one product a warp, and two side by side) equals
+    """mma_mont_mul_n (one product a warp of 8 states, and two side by side) equals
     f32_mont_mul and, on a by itself, f32_mont_sqr and Python ints."""
     nw = 8 if prime < 1 << 256 else 12
     rng = np.random.default_rng(prime % 1000)
@@ -155,7 +154,7 @@ def test_reduction_matches_f32(lib, prime):
     a, b = _words(a_vals, nw), _words(b_vals, nw)
     p, n0 = _words([prime], nw)[0], ctypes.c_uint32(-pow(prime, -1, 2**32) % 2**32)
     frag = mxu_ops.fragment_words(prime)
-    warps = len(a_vals) // 16
+    warps = len(a_vals) // 8
     rinv = pow(1 << (32 * nw), -1, prime)
     for pairs in (1, 2):
         got, want = np.zeros_like(a), np.zeros_like(a)

@@ -101,6 +101,34 @@ def test_compare():
                                          (funcs, relabelled))
 
 
+def test_ptx_diff():
+    """The difference of one kernel's PTX in two builds, labels and virtual
+    registers numbered alike, cut at `limit` lines; nothing where only
+    those numbers differ."""
+    name = "_Z13sponge_kernelILi2EEvPKiPixi12AnemoiConstsILi8EE"
+    this = ({}, {name: ["$L__BB2_2:", "add.s32 %r1, %r2, 1;", "ret;"]})
+    other = ({}, {name: ["$L__BB4_2:", "sub.s32 %r1, %r2, 1;", "ret;"]})
+    assert sass.ptx_diff(name, this, other, 20) == ["--- ", "+++ ", "@@ -1,3 +1,3 @@", " $L__BB_2:",
+                                                    "-sub.s32 %r_0, %r_1, 1;", "+add.s32 %r_0, %r_1, 1;", " ret;"]
+    assert len(sass.ptx_diff(name, this, other, 4)) == 4
+    assert sass.ptx_diff(name, this, ({}, {name: ["$L__BB7_2:", "add.s32 %r5, %r9, 1;", "ret;"]}), 20) == []
+
+
+def test_ptx_labelled_renames_registers():
+    """Virtual registers of each class are renamed in the order they first
+    appear, their declared counts dropped; special registers, and a
+    register used where its twin used another, are kept apart."""
+    lines = [".reg .b32 %r<12251>;", ".reg .b64 %rd<7>;", "mov.u32 %r12105, %tid.x;",
+             "add.s64 %rd3, %rd3, 4;", "setp.eq.s32 %p2, %r12105, 0;", "add.s32 %r581, %r12105, 1;"]
+    assert sass.ptx_labelled(lines) == [".reg .b32 %r<>;", ".reg .b64 %rd<>;", "mov.u32 %r_0, %tid.x;",
+                                        "add.s64 %rd_0, %rd_0, 4;", "setp.eq.s32 %p_0, %r_0, 0;",
+                                        "add.s32 %r_1, %r_0, 1;"]
+    twin = [line.replace("%r12105", "%r12107").replace("<12251>", "<12253>") for line in lines]
+    assert sass.ptx_labelled(twin) == sass.ptx_labelled(lines)
+    swapped = lines[:5] + ["add.s32 %r581, %r581, 1;"]
+    assert sass.ptx_labelled(swapped) != sass.ptx_labelled(lines)
+
+
 @pytest.mark.parametrize("source", ["jive.cu", "sponge.cu"])
 def test_bounds_sweep_sets_the_sources_constants(source):
     """Every constant the sweep sets by -D is one the source lets a -D
@@ -149,10 +177,11 @@ def test_innermost_loop_holding_and_product_mix():
 
 
 def test_product_loop_window_and_ladder():
-    """Under the window, the loop counted is the window's trip (twice the
-    IMMAs of the table's trip: a squaring and a product), not the table's
-    trip nor the round loop around both; under the ladder, the shortest
-    IMMA loop over the width's columns."""
+    """The loop counted is the window's trip, not the table's trip nor the
+    round loop around both: one state a thread, twice the IMMAs of the
+    table's trip (a squaring and a product); in the quad form, the shortest
+    IMMA loop that stores nothing to shared memory (a squaring and a product
+    share its code), over the width's columns."""
     lines = ["/*0000*/ MOV R1, R2 ;",
              "/*0010*/ IMMA.16832.U8.U8 R4, R6.ROW, R8.COL, R4 ;", "/*0020*/ STS [R3], R4 ;",
              "/*0030*/ @P0 BRA 0x10 ;",  # the table: one product and its store
@@ -165,4 +194,5 @@ def test_product_loop_window_and_ladder():
     assert (body, products) == (lines[4:10], 2)
     assert sass.product_mix(body, products)["IMMA"] == 1.0
     body, products = sass.product_loop("permute_mma_kernel<4>", lines)
-    assert (body, products) == (lines[1:4], 2)
+    assert (body, products) == (lines[4:7], 2)
+    assert sass.innermost_loop(lines, "IMMA") == lines[1:4]
