@@ -56,6 +56,7 @@ import torch
 from .. import _build
 from ..fields.params import InstanceParams, kernel_consts
 from ..permutation.batched import permutation_fn
+from ..utils import profiling
 from . import limb_ops as lo
 from .mxu_ops import fragment_regs, fragment_tiles, fragment_words, selects_mma
 
@@ -114,9 +115,11 @@ def _check(inst: InstanceParams, x, rows: int) -> bool:
 
 
 def _launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, out: torch.Tensor, *args) -> None:
-    """Calls a launcher of the C interface on x's device and current stream."""
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, name)(x.data_ptr(), out.data_ptr(), x.shape[1], *args, x.device.index, stream)
+    """Calls a launcher of the C interface on x's device and current stream,
+    inside an ``anemoi.launch`` span (the host's dispatch)."""
+    with profiling.span("anemoi.launch"):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, name)(x.data_ptr(), out.data_ptr(), x.shape[1], *args, x.device.index, stream)
     if err:
         raise RuntimeError(f"kernel launch failed: {name}: {lib.anemoi_error_string(err).decode()}")
 

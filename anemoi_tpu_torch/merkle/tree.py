@@ -5,6 +5,8 @@ branch, and ``MerkleTree``): a level is one batched Jive call, with child j
 of node i gathered from column arity*i + j; levels iterate on the host, and
 digests stay in Montgomery limb form throughout.  On the card every level
 is exactly one launch of the Jive kernel, and levels stay on the card.
+Under a running ``torch.profiler`` a root is an ``anemoi.merkle.root``
+span holding an ``anemoi.merkle.level`` span a level computed.
 
 Checkpoints are the JAX tree's: ``level_{lv}.npy`` written by ``np.save``
 as each level completes (int32 [L, N / arity^lv]), so a directory written
@@ -21,6 +23,7 @@ import torch
 from ..ff import cuda_backend, golden
 from ..ff.limb_ops import check_tuning, decode_ints
 from ..fields.params import InstanceParams
+from ..utils.profiling import span
 
 
 def level_states(digests: torch.Tensor, arity: int) -> torch.Tensor:
@@ -96,35 +99,37 @@ class MerkleTree:
         ``level_{lv}.npy``, and a run resumes from the deepest level file it
         finds; a resumed run with ``return_levels`` needs every level file
         up to that point and raises ``FileNotFoundError`` without one."""
-        level = torch.as_tensor(leaves, dtype=torch.int32, device=self.device)
-        L = self.inst.field.n_limbs
-        if level.dim() != 2 or level.shape[0] != L:
-            raise ValueError(f"expected leaves [{L}, N], got {tuple(level.shape)}")
-        n_leaves = int(level.shape[1])
-        n_levels = self.num_levels(n_leaves)
-        levels = [level]
-        start = 0
-        ckpt = None if checkpoint_dir is None else Path(checkpoint_dir)
-        if ckpt is not None:
-            ckpt.mkdir(parents=True, exist_ok=True)
-            start = next((lv for lv in range(n_levels, 0, -1) if (ckpt / f"level_{lv}.npy").exists()), 0)
-            if start:
-                level = self._load_level(ckpt / f"level_{start}.npy", n_leaves, start)
-            if return_levels and start:
-                # a resumed run returns the same levels a fresh one would
-                for lv in range(1, start + 1):
-                    f = ckpt / f"level_{lv}.npy"
-                    if not f.exists():
-                        raise FileNotFoundError(f"checkpoint resume with return_levels=True needs every level "
-                                                f"file up to the resume point; missing {f}")
-                    levels.append(level if lv == start else self._load_level(f, n_leaves, lv))
-        for lv in range(start, n_levels):
-            level = self._level(level)
-            if return_levels:
-                levels.append(level)
+        with span("anemoi.merkle.root"):
+            level = torch.as_tensor(leaves, dtype=torch.int32, device=self.device)
+            L = self.inst.field.n_limbs
+            if level.dim() != 2 or level.shape[0] != L:
+                raise ValueError(f"expected leaves [{L}, N], got {tuple(level.shape)}")
+            n_leaves = int(level.shape[1])
+            n_levels = self.num_levels(n_leaves)
+            levels = [level]
+            start = 0
+            ckpt = None if checkpoint_dir is None else Path(checkpoint_dir)
             if ckpt is not None:
-                np.save(ckpt / f"level_{lv + 1}.npy", level.cpu().numpy())
-        return (level, levels) if return_levels else level
+                ckpt.mkdir(parents=True, exist_ok=True)
+                start = next((lv for lv in range(n_levels, 0, -1) if (ckpt / f"level_{lv}.npy").exists()), 0)
+                if start:
+                    level = self._load_level(ckpt / f"level_{start}.npy", n_leaves, start)
+                if return_levels and start:
+                    # a resumed run returns the same levels a fresh one would
+                    for lv in range(1, start + 1):
+                        f = ckpt / f"level_{lv}.npy"
+                        if not f.exists():
+                            raise FileNotFoundError(f"checkpoint resume with return_levels=True needs every level "
+                                                    f"file up to the resume point; missing {f}")
+                        levels.append(level if lv == start else self._load_level(f, n_leaves, lv))
+            for lv in range(start, n_levels):
+                with span("anemoi.merkle.level"):
+                    level = self._level(level)
+                    if return_levels:
+                        levels.append(level)
+                    if ckpt is not None:
+                        np.save(ckpt / f"level_{lv + 1}.npy", level.cpu().numpy())
+            return (level, levels) if return_levels else level
 
     def prove(self, levels: list, index: int) -> list:
         """The authentication path of leaf `index` from the levels ``root``

@@ -4,7 +4,9 @@ Counterpart of ``anemoi_tpu/utils/profiling.py``: ``trace`` wraps
 ``torch.profiler.profile`` (with CUDA activity when a card is present) and
 writes a Chrome trace, which names every kernel the card ran; ``Timer``
 times named sections, synchronizing the card around each one so that a
-section times the device's work, not its enqueue.
+section times the device's work, not its enqueue.  ``span`` marks a span
+of the program in the trace of a running ``torch.profiler``, and costs a
+check when none runs.
 """
 
 from __future__ import annotations
@@ -17,6 +19,18 @@ from pathlib import Path
 import torch
 
 from ..ff import cuda_backend
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records a span `name` in the trace of the
+    ``torch.profiler`` recording in this process (a ``user_annotation``
+    event on the trace's clock, nested as entered), and the shared no-op
+    context when none records.  Names are fixed constants."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
