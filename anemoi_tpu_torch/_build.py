@@ -21,6 +21,7 @@ import logging
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -71,7 +72,8 @@ def _compile(source: Path, deps: list[Path], compiler: str, flags: tuple) -> tup
     if lib_path.exists():
         return lib_path, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+    # threads of one process may build the same library at once (the oracle's first call from a pool)
+    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     t0 = time.perf_counter()
     proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0

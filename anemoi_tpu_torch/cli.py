@@ -144,7 +144,8 @@ def cmd_info(args, device: torch.device) -> int:
 def _stats(seconds: float) -> str:
     perm = cuda_backend.permutation
     return (f"seconds: {seconds:.6f}; launches: jive {cuda_backend.jive.launches}, permutation {perm.launches} "
-            f"(four-lane {perm.group_launches}), sponge {cuda_backend.sponge.launches}")
+            f"(four-lane {perm.group_launches}), sponge {cuda_backend.sponge.launches}, "
+            f"unpack {cuda_backend.unpack.launches}")
 
 
 def main(argv=None) -> int:

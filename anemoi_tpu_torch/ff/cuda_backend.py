@@ -30,6 +30,10 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
     the card) ``permute_mma_kernel``, both one state or message a quad of
     four lanes (8 a warp, each word-sliced as in the sponge); above it
     ``permute_mma_thread_kernel``, one state a thread as in the Jive.
+  * ``unpack`` (``csrc/unpack.cu``; the JAX package packs bytes on the
+    host): byte messages of one element count, joined into one buffer,
+    -> int32 [E, L, B] Montgomery limbs, the sponge's input; one thread an
+    (element, message).
 
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
@@ -39,7 +43,8 @@ other.  Each counts its launches in ``<wrapper>.launches``;
 four-lane kernel, as the launcher reports the kernel it picked; the
 tensor-core kernels count theirs in ``jive_mma.launches``,
 ``permutation_mma.launches`` (and in ``permutation_mma.quad_launches``
-those that went to the quad form) and ``sponge_mma.launches``.  The kernels
+those that went to the quad form) and ``sponge_mma.launches``; the unpack
+kernel in ``unpack.launches``.  The kernels
 cover every field: each source is built once per word count (8 for the
 20-limb fields, 12 for the 30-limb ones), and a wrapper launches the
 library of its field's ``kernel_words``.
@@ -54,7 +59,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..fields.params import InstanceParams, kernel_consts
+from ..fields.params import LIMB_BITS, LIMB_MASK, InstanceParams, kernel_consts, words_from_int
 from ..permutation.batched import permutation_fn
 from ..utils import profiling
 from . import limb_ops as lo
@@ -63,6 +68,7 @@ from .mxu_ops import fragment_regs, fragment_tiles, fragment_words, selects_mma
 KERNEL_SHAPES = ((2, 2), (4, 2), (4, 4))  # (WIDTH, k) instantiated in jive.cu
 KERNEL_WORDS = (8, 12)  # the word counts each source is built for
 _MAX_ROUND_COLUMNS = 28  # rounds * columns of the largest instance
+_UNPACK_PLAIN_SLOTS = 1 << 16  # (element, message) pairs unpack_plain takes a pass
 
 
 def consts_len(words: int) -> int:
@@ -378,19 +384,93 @@ def sponge_mma(lib: ctypes.CDLL, inst: InstanceParams, num_elements: int, x: tor
 sponge_mma.launches = 0
 
 
+# --------------------------------------------------------------------------
+# byte messages -> Montgomery limbs
+# --------------------------------------------------------------------------
+
+
+def unpack_plain(inst: InstanceParams, num_elements: int, data: torch.Tensor, spans: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the unpack kernel, on any device: the
+    elements' bytes gathered (the pad byte 1 right after a short last
+    chunk), sliced into 13-bit limbs, then ``limb_ops.to_mont``; a few
+    elements a pass, so a 4,096 x 10 KB bucket needs no GBs of temporaries."""
+    fp = inst.field
+    E, L, chunk, B = num_elements, fp.n_limbs, fp.byte_chunk, spans.shape[1]
+    out = torch.zeros((E, L, B), dtype=torch.int32, device=data.device)
+    if E == 0 or B == 0:
+        return out
+    first = [LIMB_BITS * l // 8 for l in range(L)]  # each limb's bits lie in bytes first .. first + 2
+    width = first[-1] + 3
+    j = torch.arange(width, device=data.device)
+    idx = torch.tensor(first, device=data.device)
+    shift = torch.tensor([LIMB_BITS * l % 8 for l in range(L)], device=data.device)
+    fc = lo.field_consts(fp)
+    step = max(1, _UNPACK_PLAIN_SLOTS // B)  # elements a pass, so the int64 temporaries stay tens of MB
+    for e0 in range(0, E, step):
+        n = min(step, E - e0)
+        pos = torch.arange(e0, e0 + n, device=data.device).reshape(n, 1, 1) * chunk + j  # [n, 1, width]
+        rest = spans[1].reshape(1, B, 1) - pos  # [n, B, width]: the message's bytes from each slot on
+        inside = (rest > 0) & (j < chunk)
+        byte = torch.where(inside, data[torch.where(inside, spans[0].reshape(1, B, 1) + pos, 0)].long(), 0)
+        byte = torch.where((rest == 0) & (j < chunk), 1, byte)  # the pad byte
+        word = byte[..., idx] | byte[..., idx + 1] << 8 | byte[..., idx + 2] << 16
+        limbs = (word >> shift) & LIMB_MASK  # [n, B, L], canonical
+        mont = lo.to_mont(limbs.permute(2, 0, 1).reshape(L, n * B), fc)
+        out[e0:e0 + n] = mont.reshape(L, n, B).permute(1, 0, 2)
+    return out
+
+
+def unpack(inst: InstanceParams, num_elements: int, data: torch.Tensor, spans: torch.Tensor) -> torch.Tensor:
+    """B byte messages of E = num_elements elements each -> their elements,
+    int32 [E, L, B] Montgomery limbs, the sponge's input.  ``data`` is uint8
+    [nbytes], the messages joined; ``spans`` int64 [2, B], each message's
+    offset in ``data`` and its length.  Chunking, padding and limbs as
+    ``native.pack_bytes``, then ``limb_ops.to_mont``.  CUDA tensors go to
+    ``unpack_kernel`` (``csrc/unpack.cu``), counted in ``unpack.launches``;
+    CPU tensors to ``unpack_plain``."""
+    if data.dtype != torch.uint8 or data.dim() != 1 or spans.dtype != torch.int64 or spans.dim() != 2 \
+            or spans.shape[0] != 2 or spans.device != data.device:
+        raise ValueError(f"expected uint8 [nbytes] and int64 [2, B] on one device, got {data.dtype} "
+                         f"{tuple(data.shape)} and {spans.dtype} {tuple(spans.shape)}")
+    if data.device.type == "cpu":
+        return unpack_plain(inst, num_elements, data, spans)
+    if not (data.is_contiguous() and spans.is_contiguous()):
+        raise ValueError("the inputs must be contiguous")
+    fp = inst.field
+    out = torch.empty((num_elements, fp.n_limbs, spans.shape[1]), dtype=torch.int32, device=data.device)
+    if out.numel() == 0:
+        return out
+    _launch(unpack_library(fp.kernel_words).cdll, "anemoi_unpack", spans, out, data.data_ptr(), num_elements,
+            fp.byte_chunk, fp.n_limbs, unpack_consts(fp).ctypes.data)
+    unpack.launches += 1
+    return out
+
+
+unpack.launches = 0
+
+
+@lru_cache(maxsize=None)
+def unpack_consts(fp) -> np.ndarray:
+    """``UnpackConsts<NW>`` (csrc/unpack.cu) as uint32 words: p, n0 and
+    2^(13L + 32 NW) mod p, by which one Montgomery product takes x to x R."""
+    nw = fp.kernel_words
+    to_mont = pow(2, LIMB_BITS * fp.n_limbs + fp.kernel_r_bits, fp.p)
+    return np.concatenate([words_from_int(fp.p, nw), [fp.kernel_n0], words_from_int(to_mont, nw)]).astype(np.uint32)
+
+
 def launch_counts() -> dict:
     """The wrappers' launch counts now: "jive", "jive_mma" (the tensor-core
     Jive kernel), "permutation" (both integer permutation kernels),
     "four_lane" (those of them that went to the four-lane kernel),
     "sponge", "permutation_mma" (the tensor-core permutation's quad form,
     ``permute_mma_kernel``), "permutation_mma_thread" (its thread form,
-    ``permute_mma_thread_kernel``) and "sponge_mma" (the tensor-core
-    sponge)."""
+    ``permute_mma_thread_kernel``), "sponge_mma" (the tensor-core sponge)
+    and "unpack" (bytes to Montgomery limbs)."""
     return {"jive": jive.launches, "jive_mma": jive_mma.launches, "permutation": permutation.launches,
             "four_lane": permutation.group_launches, "sponge": sponge.launches,
             "permutation_mma": permutation_mma.quad_launches,
             "permutation_mma_thread": permutation_mma.launches - permutation_mma.quad_launches,
-            "sponge_mma": sponge_mma.launches}
+            "sponge_mma": sponge_mma.launches, "unpack": unpack.launches}
 
 
 # --------------------------------------------------------------------------
@@ -414,10 +494,11 @@ def _declare(fn, argtypes: list, restype) -> None:
     fn.argtypes, fn.restype = argtypes, restype
 
 
-def _load(source: str, words: int, launchers: dict, consts_fn: str, defines: tuple) -> _build.Library:
+def _load(source: str, words: int, launchers: dict, consts_fn: str, defines: tuple,
+          n_consts: int | None = None) -> _build.Library:
     """csrc/<source> built for `words` (-DANEMOI_WORDS) and any further
-    `defines`, its C interface declared and its constants' layout checked
-    against ``consts_words``."""
+    `defines`, its C interface declared and its constants' layout checked:
+    ``n_consts`` words, by default ``consts_words``'s."""
     if words not in KERNEL_WORDS:
         raise ValueError(f"the kernels are built for {KERNEL_WORDS} words, not {words}")
     built = _build.load(source, defines=(f"-DANEMOI_WORDS={words}", *defines))
@@ -425,9 +506,16 @@ def _load(source: str, words: int, launchers: dict, consts_fn: str, defines: tup
     declare(lib, launchers)
     layout = getattr(lib, consts_fn)
     _declare(layout, [], ctypes.c_int)
-    if layout() != consts_len(words):
-        raise RuntimeError(f"AnemoiConsts<{words}> in {source} and consts_words() disagree on the layout")
+    if layout() != (consts_len(words) if n_consts is None else n_consts):
+        raise RuntimeError(f"the constants of {source} at {words} words and the port's disagree on the layout")
     return built
+
+
+@lru_cache(maxsize=None)
+def unpack_library(words: int) -> _build.Library:
+    """unpack.cu for `words`-word fields, built at first use."""
+    launcher = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return _load("unpack.cu", words, {"anemoi_unpack": launcher}, "anemoi_unpack_consts_words", (), 2 * words + 1)
 
 
 @lru_cache(maxsize=None)

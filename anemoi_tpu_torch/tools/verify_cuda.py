@@ -177,7 +177,7 @@ def kernel_launches(words: int, delta: dict) -> dict:
     return {f"jive{w}": delta["jive"], f"jive_mma{w}": delta["jive_mma"], f"permutation{w}": delta["four_lane"],
             f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"],
             f"permutation_mma{w}": delta["permutation_mma"], f"permutation_mma_thread{w}": delta["permutation_mma_thread"],
-            f"sponge_mma{w}": delta["sponge_mma"]}
+            f"sponge_mma{w}": delta["sponge_mma"], f"unpack{w}": delta["unpack"]}
 
 
 def main(argv=None) -> int:

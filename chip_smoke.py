@@ -445,7 +445,7 @@ def main() -> int:
         encode_states,
         jive_compress_batch_fn,
     )
-    from anemoi_tpu_torch.modes.bytes_pipeline import mont_messages, pack_messages
+    from anemoi_tpu_torch.modes.bytes_pipeline import bucket_messages, gather_messages, pack_messages
     from anemoi_tpu_torch.modes.streaming import BatchedSponge
 
     rng = np.random.default_rng(args.seed)
@@ -455,7 +455,7 @@ def main() -> int:
     max_err = dict.fromkeys(["jive", "permutation", "permutation_thread", "sponge", "jive_w12", "permutation_w12",
                              "permutation_thread_w12", "sponge_w12", "sqr_chain", "mad_loop", "jive_mma",
                              "jive_mma_w12", "permutation_mma", "permutation_mma_w12", "permutation_mma_thread",
-                             "permutation_mma_thread_w12", "sponge_mma", "sponge_mma_w12"], 0)
+                             "permutation_mma_thread_w12", "sponge_mma", "sponge_mma_w12", "unpack", "unpack_w12"], 0)
 
     def canonical_states(inst, n):
         """int32 [WIDTH, L, n] random canonical states on the card."""
@@ -601,6 +601,42 @@ def main() -> int:
             start += n * inst.rate
         return stream.finalize(mont[start:])
 
+    def unpack_route(inst, msgs, key: str, what: str) -> tuple[dict, torch.Tensor]:
+        """.batch.hash_bytes's byte route over `msgs` (one bucket) phase by phase, each synchronized:
+        ``bucket_messages``, ``gather_messages`` into page-locked memory, the copy to the card, and
+        ``cuda_backend.unpack``, one launch of unpack_kernel, held bit for bit against ``unpack_plain`` on the card
+        (max_err[key]).  Returns the phases' host ms, the kernel's ms (CUDA events) and the plain version's, the
+        kernel's bound (its bytes at HBM_BYTES_PER_S: one product an element is far below the IMAD bound), and the
+        int32 [E, L, B] Montgomery elements on the card, the sponge's input."""
+        t = [time.perf_counter()]
+        lengths, buckets = bucket_messages(inst, msgs)
+        t.append(time.perf_counter())
+        (E, idxs), = buckets.items()
+        data, spans = gather_messages(msgs, lengths, idxs, pin=True)
+        t.append(time.perf_counter())
+        data, spans = data.to(dev, non_blocking=True), spans.to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        before = cuda_backend.unpack.launches
+        elems = cuda_backend.unpack(inst, E, data, spans)
+        if cuda_backend.unpack.launches != before + 1:
+            fail(f"{what}: unpack took {cuda_backend.unpack.launches - before} launches, not 1")
+        plain_ms, plain = host_time_ms(lambda: cuda_backend.unpack_plain(inst, E, data, spans))
+        held(elems, plain, f"{what}: unpack_kernel against unpack_plain", key)
+        ms = mb.event_ms(lambda: cuda_backend.unpack(inst, E, data, spans), REPS)
+        n_bytes = data.numel() + spans.numel() * 8 + elems.numel() * 4
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        r = {"elements": E, "messages": len(msgs), "bucket_ms": (t[1] - t[0]) * 1e3,
+             "gather_ms": (t[2] - t[1]) * 1e3, "copy_ms": (t[3] - t[2]) * 1e3, "ms": ms, "plain_ms": plain_ms,
+             "bytes": n_bytes, "bound": {"bytes_ms": bytes_ms, "bound_ms": bytes_ms, "bound_by": "bytes"}}
+        print(f"  {what}, the byte route over {len(msgs)} x {len(msgs[0])} bytes ({E} elements each; host clock, "
+              f"synchronized): bucket_messages {r['bucket_ms']:.2f} ms, gather_messages into page-locked memory "
+              f"{r['gather_ms']:.1f} ms, the copy {r['copy_ms']:.2f} ms; unpack_kernel {ms:.4f} ms ({REPS} calls "
+              f"after a warm-up, CUDA events), one launch, equal to unpack_plain on the card bit for bit "
+              f"({plain_ms:.1f} ms); bound {n_bytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+              f"{bytes_ms:.4f} ms, kernel at {bytes_ms / ms:.1%} of it ({smi})", flush=True)
+        return r, elems
+
     def random_on_card(inst, rows: int, n: int, seed: int):
         """int32 [rows, L, n] random canonical elements made on the card."""
         L = inst.field.n_limbs
@@ -680,11 +716,16 @@ def main() -> int:
                         fail(f"SAGE hash_field mismatch: {field}/{iname}, {len(elems)} elements")
                 data = [b"".join(int(e).to_bytes(fp.byte_chunk, "little") for e in elems)
                         for elems in vec["hash_bytes"]["input"]]
+                before = cuda_backend.unpack.launches
                 got = obj.batch.decode_states(obj.batch.hash_bytes(data))
+                buckets = len({native.num_elements(len(d), fp) for d in data} - {0})
+                if cuda_backend.unpack.launches - before != buckets:
+                    fail(f"SAGE hash_bytes, {field}/{iname}: {cuda_backend.unpack.launches - before} unpack launches "
+                         f"for {buckets} buckets")
                 if got != [[int(w) for w in want] for want in vec["hash_bytes"]["output"]]:
                     fail(f"SAGE hash_bytes mismatch: {field}/{iname}")
                 print(f"  {field}/{iname}: {len(vec['hash_field']['input'])} hash_field and {len(data)} "
-                      f"hash_bytes vectors exact", flush=True)
+                      f"hash_bytes vectors exact; {buckets} unpack launches, one a bucket", flush=True)
 
     # 1 ---------------------------------------------------------------------
     if run(1):
@@ -928,22 +969,25 @@ def main() -> int:
         chunks = [blocks // 4 + (i < blocks % 4) for i in range(4)]  # rate-blocks per chunk
         torch.cuda.synchronize()
 
-        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
+        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge, cuda_backend.unpack):
             counter.launches = 0
         cuda_backend.permutation.group_launches = 0
         first_ms, full = {}, {}
         for iname, obj in objs.items():
             first_ms[iname], full[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
-        sponge_launches = cuda_backend.sponge.launches
+        sponge_launches, unpack_launches = cuda_backend.sponge.launches, cuda_backend.unpack.launches
+        if unpack_launches != len(objs):
+            fail(f"hash_bytes took {unpack_launches} unpack launches for {len(objs)} calls of one bucket")
         inst = objs["anemoi_4_3"].params
-        mont = mont_messages(inst, pack_messages(inst, msgs), dev)
+        unpack8, mont = unpack_route(inst, msgs, "unpack", "vesta")
         streamed = run_stream(inst, mont, chunks)
         torch.cuda.synchronize()
         perm_launches = cuda_backend.permutation.launches
         perm_group_launches = cuda_backend.permutation.group_launches
         print(f"  main path: hash_bytes for vesta/anemoi_4_3 and vesta/anemoi_2_1 over {N_MSGS} x {MSG_BYTES} bytes "
               f"({E} elements each), BatchedSponge over the 4_3 messages in chunks of {chunks} rate-blocks and a "
-              f"tail of {E - sum(chunks) * rate43}: {sponge_launches} sponge launches, {perm_launches} permutation "
+              f"tail of {E - sum(chunks) * rate43}: {unpack_launches} unpack and {sponge_launches} sponge launches, "
+              f"{perm_launches} permutation "
               f"launches ({perm_group_launches} four-lane), {cuda_backend.jive.launches} Jive launches", flush=True)
         if sponge_launches != len(objs):
             fail(f"hash_bytes took {sponge_launches} sponge launches for {len(objs)} calls")
@@ -962,14 +1006,11 @@ def main() -> int:
         for iname, obj in objs.items():
             inst = obj.params
             e2e_ms[iname] = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
-            pack_ms = time.perf_counter()
-            packed = pack_messages(inst, msgs)
-            pack_ms = (time.perf_counter() - pack_ms) * 1e3
-            x = mont_messages(inst, packed, dev).reshape(E * L, N_MSGS)
+            x = mont.reshape(E * L, N_MSGS)  # one field: the unpacked elements serve both instances
             ms = sponge_ms[iname] = mb.event_ms(lambda: cuda_backend.sponge(inst, E, x), SPONGE_REPS)
             perms = -(-E // inst.rate)
             b = sponge_bound[iname] = bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
-            print(f"  vesta/{iname}: host packing {pack_ms:.1f} ms; sponge kernel {ms:.3f} ms ({SPONGE_REPS} calls "
+            print(f"  vesta/{iname}: sponge kernel {ms:.3f} ms ({SPONGE_REPS} calls "
                   f"after a warm-up, CUDA events; {perms} permutations a message); end to end {e2e_ms[iname]:.1f} ms "
                   f"(host clock around .batch.hash_bytes, synchronized; {first_ms[iname]:.1f} ms in the main-path "
                   f"run, the first); {N_MSGS / (e2e_ms[iname] / 1e3):.1f} msgs/s, "
@@ -1195,19 +1236,25 @@ def main() -> int:
         chunks = [blocks // 4 + (i < blocks % 4) for i in range(4)]
         torch.cuda.synchronize()
 
-        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge):
+        for counter in (cuda_backend.jive, cuda_backend.permutation, cuda_backend.sponge, cuda_backend.unpack):
             counter.launches = 0
         cuda_backend.permutation.group_launches = 0
         first12_ms, full12 = host_time_ms(lambda: obj.batch.hash_bytes(msgs))
-        sponge12_launches = cuda_backend.sponge.launches
-        mont = mont_messages(inst, pack_messages(inst, msgs), dev)
+        sponge12_launches, unpack12_launches = cuda_backend.sponge.launches, cuda_backend.unpack.launches
+        if unpack12_launches != 1:
+            fail(f"hash_bytes took {unpack12_launches} unpack launches for one call of one bucket")
+        unpack12, mont = unpack_route(inst, msgs, "unpack_w12", "bls12_381")
+        # and at the 20-limb fields' E: 331 elements of 47 bytes, the last of 10
+        unpack12_331 = unpack_route(inst, [rng.bytes(330 * inst.field.byte_chunk + 10) for _ in range(N_MSGS)],
+                                    "unpack_w12", "bls12_381, E = 331")[0]
         streamed = run_stream(inst, mont, chunks)
         torch.cuda.synchronize()
         perm12_launches = cuda_backend.permutation.launches
         perm12_group_launches = cuda_backend.permutation.group_launches
         print(f"  main path: hash_bytes for bls12_381/anemoi_4_3 over {N_MSGS} x {MSG_BYTES} bytes ({E} elements "
               f"each), BatchedSponge in chunks of {chunks} rate-blocks and a tail of {E - sum(chunks) * rate}: "
-              f"{sponge12_launches} sponge launch, {perm12_launches} permutation launches ({perm12_group_launches} "
+              f"{unpack12_launches} unpack and {sponge12_launches} sponge launch, {perm12_launches} permutation launches "
+              f"({perm12_group_launches} "
               f"four-lane), {cuda_backend.jive.launches} Jive launches", flush=True)
         if sponge12_launches != 1:
             fail(f"hash_bytes took {sponge12_launches} sponge launches for one call")
@@ -1222,14 +1269,11 @@ def main() -> int:
         print("  BatchedSponge digests equal hash_bytes's", flush=True)
 
         e2e12_ms = host_time_ms(lambda: obj.batch.hash_bytes(msgs))[0]
-        pack12_ms = time.perf_counter()
-        packed = pack_messages(inst, msgs)
-        pack12_ms = (time.perf_counter() - pack12_ms) * 1e3
-        x = mont_messages(inst, packed, dev).reshape(E * L, N_MSGS)
+        x = mont.reshape(E * L, N_MSGS)
         sponge12_ms = mb.event_ms(lambda: cuda_backend.sponge(inst, E, x), SPONGE_REPS)
         perms = -(-E // rate)
         sponge12_bound = bound(inst, N_MSGS * perms, N_MSGS * (E + inst.digest_size) * L * 4)
-        print(f"  bls12_381/anemoi_4_3: host packing {pack12_ms:.1f} ms; sponge kernel {sponge12_ms:.3f} ms "
+        print(f"  bls12_381/anemoi_4_3: sponge kernel {sponge12_ms:.3f} ms "
               f"({SPONGE_REPS} calls after a warm-up, CUDA events; {perms} permutations a message); end to end "
               f"{e2e12_ms:.1f} ms (host clock around .batch.hash_bytes, synchronized; {first12_ms:.1f} ms in the "
               f"main-path run, the first); {N_MSGS / (e2e12_ms / 1e3):.1f} msgs/s, "
@@ -1360,14 +1404,15 @@ def main() -> int:
                 if [lines[i] for i in picks] != want:
                     fail(f"cli hash {field}/{iname}: digests differ from the golden model")
                 counts = {native.num_elements(len(d), fp) for d in data} - {0}
-                launches = {"sponge": sum(e >= inst.rate for e in counts), "permutation": sum(e < inst.rate for e in counts)}
+                launches = {"sponge": sum(e >= inst.rate for e in counts), "permutation": sum(e < inst.rate for e in counts),
+                            "unpack": len(counts)}
                 if any(stats[k] != v for k, v in launches.items()) or stats["jive"]:
                     fail(f"cli hash {field}/{iname}: launches {stats}, expected {launches}")
                 slice4[f"cli_hash {field}/{iname}"] = {k: stats[k] for k in launches}
                 print(f"  cli hash, {field}/{iname}: {N_CLI_FILES} files of {len(CLI_LENGTHS)} lengths from 0 to "
                       f"{MSG_BYTES} bytes ({len(counts) + 1} element counts): digests equal .batch.hash_bytes's, "
-                      f"{N_CLI_GOLDEN} the golden model's; {stats['sponge']} sponge and {stats['permutation']} "
-                      f"permutation launches; {stats['seconds']:.3f} s in the command", flush=True)
+                      f"{N_CLI_GOLDEN} the golden model's; {stats['unpack']} unpack, {stats['sponge']} sponge and "
+                      f"{stats['permutation']} permutation launches; {stats['seconds']:.3f} s in the command", flush=True)
             if results[hash_cases[0]][0][0] != HELLO_WORLD:
                 fail(f"cli hash of b'hello world': {results[hash_cases[0]][0][0]}, not {HELLO_WORLD}")
             print(f"  cli hash of b'hello world', vesta/anemoi_2_1: {HELLO_WORLD}", flush=True)
@@ -1826,7 +1871,7 @@ def main() -> int:
 
         def zero_counts() -> None:
             for counter in (cuda_backend.jive, cuda_backend.jive_mma, cuda_backend.permutation, cuda_backend.sponge,
-                            cuda_backend.permutation_mma, cuda_backend.sponge_mma):
+                            cuda_backend.permutation_mma, cuda_backend.sponge_mma, cuda_backend.unpack):
                 counter.launches = 0
             cuda_backend.permutation.group_launches = cuda_backend.permutation_mma.quad_launches = 0
 
@@ -2115,10 +2160,22 @@ def main() -> int:
             entry("sponge_w12", "anemoi_tpu_torch/csrc/sponge.cu", "anemoi_tpu/ff/pallas_backend.py:610",
                   sponge12_launches, sponge12_ms, plain_times[("sponge_w12", "anemoi_4_3", 4)], sponge12_bound,
                   words=12, instance="bls12_381/anemoi_4_3", messages=N_MSGS, elements=E, plain_messages=N_PLAIN,
-                  plain_elements=4, e2e_ms=e2e12_ms, pack_ms=pack12_ms,
+                  plain_elements=4, e2e_ms=e2e12_ms, host_route_ms={k: unpack12[k] for k in ("bucket_ms", "gather_ms", "copy_ms")},
                   cli_hash_launches=slice4["cli_hash bls12_381/anemoi_4_3"]["sponge"],
                   bench_launches=slice5["bench"]["sponge_w12"], verify_launches=slice5["verify"]["sponge_w12"],
                   build_s=sponge_lib12.build_seconds),
+            *(entry(key, "anemoi_tpu_torch/csrc/unpack.cu", "anemoi_tpu/modes/bytes_pipeline.py:43", launches,
+                    r["ms"], r["plain_ms"], r["bound"], words=words, instance=instance, messages=r["messages"],
+                    elements=r["elements"], bytes=r["bytes"], plain_route="cuda", plain_messages=r["messages"],
+                    host_route_ms={k: r[k] for k in ("bucket_ms", "gather_ms", "copy_ms")},
+                    cli_hash_launches=slice4[f"cli_hash {cli}"]["unpack"],
+                    verify_launches=slice5["verify"][key], build_s=cuda_backend.unpack_library(words).build_seconds,
+                    **extra)
+              for key, words, instance, cli, launches, r, extra in (
+                  ("unpack", 8, "vesta/anemoi_4_3", "vesta/anemoi_2_1", unpack_launches, unpack8, {}),
+                  ("unpack_w12", 12, "bls12_381/anemoi_4_3", "bls12_381/anemoi_4_3", unpack12_launches, unpack12,
+                   {"ms_e331": unpack12_331["ms"], "plain_ms_e331": unpack12_331["plain_ms"],
+                    "bound_ms_e331": unpack12_331["bound"]["bound_ms"]}))),
             entry("jive_mma", "anemoi_tpu_torch/csrc/jive_mma.cu", "anemoi_tpu/ff/pallas_backend.py:707",
                   mma["launches"], mma["ms"]["vesta"], mma["plain_ms"][8], mma["bound"]["vesta"], words=8,
                   mul_impl=MMA_IMPL, instance="vesta/anemoi_2_1", lanes=N_FULL, jive_kernel_ms=mma["jive_ms"]["vesta"],

@@ -37,7 +37,8 @@ def test_verify_cpu_all_pass(oracle_plain, capsys):
                  "merkle root, 16 leaves"):
         assert any(what in line for line in checks), what
     assert lines[-2] == ('launches: {"jive": 0, "jive_mma": 0, "permutation": 0, "permutation_thread": 0, '
-                         '"sponge": 0, "permutation_mma": 0, "permutation_mma_thread": 0, "sponge_mma": 0}')
+                         '"sponge": 0, "permutation_mma": 0, "permutation_mma_thread": 0, "sponge_mma": 0, '
+                         '"unpack": 0}')
     assert lines[-1].endswith("ALL PASS")
 
 
