@@ -2,7 +2,10 @@
 
 The second bound of ``__launch_bounds__`` caps a kernel's registers and
 changes how ptxas schedules it: ``JIVE2_MIN_BLOCKS`` and
-``JIVE4_MIN_BLOCKS`` in ``csrc/jive.cu``, ``PERMUTE_MIN_BLOCKS`` and
+``JIVE4_MIN_BLOCKS`` (``JIVE44_MIN_BLOCKS`` for ``<4,4>`` alone) in
+``csrc/jive.cu``, and ``JIVE2_PASTA_MIN_BLOCKS``,
+``JIVE42_PASTA_MIN_BLOCKS`` and ``JIVE44_PASTA_MIN_BLOCKS`` for its kernels
+of the Pasta moduli's shape, ``PERMUTE_MIN_BLOCKS`` and
 ``PERMUTE_GROUP_MIN_BLOCKS`` in ``csrc/sponge.cu``, ``JIVE_MMA2_MIN_BLOCKS``
 and ``JIVE_MMA4_MIN_BLOCKS`` in ``csrc/jive_mma.cu``,
 ``PERMUTE_MMA_MIN_BLOCKS``, ``SPONGE_MMA_MIN_BLOCKS`` and
@@ -22,8 +25,14 @@ is timed with CUDA events at its main path's size on random canonical
 states or messages made on the card, its output held bit for bit against
 the shipped library's:
 
-  * ``jive_kernel<2,2>`` over 2^20 states (Vesta 2_1, BLS12-381 2_1) and
-    ``jive_kernel<4,2>`` over 2^20 (Vesta 4_3, BLS12-381 4_3);
+  * ``jive_kernel<2,2>`` over 2^20 states (BN-254 2_1, BLS12-381 2_1),
+    ``jive_kernel<4,2>`` over 2^20 (BN-254 4_3, BLS12-381 4_3) and
+    ``jive_kernel<4,4>`` over 2^20 (BN-254 4_3, 8 words only): at 8 words a
+    field without the Pasta moduli's shape, since the launcher sends those
+    with it to ``jive_pasta_kernel``;
+  * ``jive_pasta_kernel<2,2>`` over 2^20 states (Vesta 2_1), and
+    ``jive_pasta_kernel<4,2>`` and ``<4,4>`` over 2^20 (Vesta 4_3), 8 words
+    only;
   * ``permute_group_kernel<4>`` at 4,096 states and ``permute_kernel<4>``
     at 65,536 (Vesta 4_3, BLS12-381 4_3);
   * ``jive_mma_kernel<2,2>`` and ``<4,2>`` over 2^20 states, as
@@ -58,7 +67,8 @@ from .ff import cuda_backend
 from .fields.params import get_instance
 from .microbench import event_ms
 
-MACROS = {"jive.cu": ("JIVE2_MIN_BLOCKS", "JIVE4_MIN_BLOCKS"),
+MACROS = {"jive.cu": ("JIVE2_MIN_BLOCKS", "JIVE4_MIN_BLOCKS", "JIVE44_MIN_BLOCKS", "JIVE2_PASTA_MIN_BLOCKS",
+                      "JIVE42_PASTA_MIN_BLOCKS", "JIVE44_PASTA_MIN_BLOCKS"),
           "sponge.cu": ("PERMUTE_MIN_BLOCKS", "PERMUTE_GROUP_MIN_BLOCKS"),
           "jive_mma.cu": ("JIVE_MMA2_MIN_BLOCKS", "JIVE_MMA4_MIN_BLOCKS"),
           "sponge_mma.cu": ("PERMUTE_MMA_MIN_BLOCKS", "SPONGE_MMA_MIN_BLOCKS", "PERMUTE_MMA_THREAD_MIN_BLOCKS")}
@@ -67,19 +77,26 @@ SHAPES = {"sponge_mma.cu": (("MMA_BLOCK_WARPS", 2), ("MMA_BLOCK_WARPS", 4), ("PE
                             ("PERMUTE_MMA_THREAD_BLOCK_WARPS", 2)),
           "jive_mma.cu": (("JIVE_MMA_BLOCK_WARPS", 1), ("JIVE_MMA_BLOCK_WARPS", 2))}
 FIELDS = {8: "vesta", 12: "bls12_381"}
-# (source, kernel as ptxas names it, the macro that bounds it, instance, k or the permutation kernel, states);
-# sponge_mma_kernel's fifth field is None: its E is a 10 KB message's elements; the tensor-core permutation's is
-# the form, 1 the quad form and 0 the thread form
+ANY_FIELDS = {8: "bn_254", 12: "bls12_381"}  # moduli without the Pasta shape: jive_kernel's
+PASTA_FIELDS = {8: "vesta"}  # jive_pasta_kernel's
+# (source, kernel as ptxas names it, the macro that bounds it, instance, k or the permutation kernel, states,
+# the field at each word count); sponge_mma_kernel's fifth field is None: its E is a 10 KB message's elements;
+# the tensor-core permutation's is the form, 1 the quad form and 0 the thread form
 KERNELS = (
-    ("jive.cu", "jive_kernel<2,2>", "JIVE2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20),
-    ("jive.cu", "jive_kernel<4,2>", "JIVE4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20),
-    ("sponge.cu", "permute_group_kernel<4>", "PERMUTE_GROUP_MIN_BLOCKS", "anemoi_4_3", 1, 4096),
-    ("sponge.cu", "permute_kernel<4>", "PERMUTE_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16),
-    ("jive_mma.cu", "jive_mma_kernel<2,2>", "JIVE_MMA2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20),
-    ("jive_mma.cu", "jive_mma_kernel<4,2>", "JIVE_MMA4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20),
-    ("sponge_mma.cu", "permute_mma_kernel<4>", "PERMUTE_MMA_MIN_BLOCKS", "anemoi_4_3", 1, 4096),
-    ("sponge_mma.cu", "permute_mma_thread_kernel<4>", "PERMUTE_MMA_THREAD_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16),
-    ("sponge_mma.cu", "sponge_mma_kernel<4>", "SPONGE_MMA_MIN_BLOCKS", "anemoi_4_3", None, 4096),
+    ("jive.cu", "jive_kernel<2,2>", "JIVE2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20, ANY_FIELDS),
+    ("jive.cu", "jive_kernel<4,2>", "JIVE4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20, ANY_FIELDS),
+    ("jive.cu", "jive_kernel<4,4>", "JIVE44_MIN_BLOCKS", "anemoi_4_3", 4, 1 << 20, {8: ANY_FIELDS[8]}),
+    ("jive.cu", "jive_pasta_kernel<2,2>", "JIVE2_PASTA_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20, PASTA_FIELDS),
+    ("jive.cu", "jive_pasta_kernel<4,2>", "JIVE42_PASTA_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20, PASTA_FIELDS),
+    ("jive.cu", "jive_pasta_kernel<4,4>", "JIVE44_PASTA_MIN_BLOCKS", "anemoi_4_3", 4, 1 << 20, PASTA_FIELDS),
+    ("sponge.cu", "permute_group_kernel<4>", "PERMUTE_GROUP_MIN_BLOCKS", "anemoi_4_3", 1, 4096, FIELDS),
+    ("sponge.cu", "permute_kernel<4>", "PERMUTE_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16, FIELDS),
+    ("jive_mma.cu", "jive_mma_kernel<2,2>", "JIVE_MMA2_MIN_BLOCKS", "anemoi_2_1", 2, 1 << 20, FIELDS),
+    ("jive_mma.cu", "jive_mma_kernel<4,2>", "JIVE_MMA4_MIN_BLOCKS", "anemoi_4_3", 2, 1 << 20, FIELDS),
+    ("sponge_mma.cu", "permute_mma_kernel<4>", "PERMUTE_MMA_MIN_BLOCKS", "anemoi_4_3", 1, 4096, FIELDS),
+    ("sponge_mma.cu", "permute_mma_thread_kernel<4>", "PERMUTE_MMA_THREAD_MIN_BLOCKS", "anemoi_4_3", 0, 1 << 16,
+     FIELDS),
+    ("sponge_mma.cu", "sponge_mma_kernel<4>", "SPONGE_MMA_MIN_BLOCKS", "anemoi_4_3", None, 4096, FIELDS),
 )
 MSG_BYTES = 10 * 1024
 LIBRARIES = {"jive.cu": cuda_backend.library, "sponge.cu": cuda_backend.sponge_library,
@@ -132,7 +149,8 @@ def run_kernel(lib, source: str, inst, arg: int, x: torch.Tensor) -> torch.Tenso
     if source in ("jive.cu", "jive_mma.cu"):
         out = torch.empty((x.shape[0] // arg, x.shape[1]), dtype=torch.int32, device=x.device)
         if source == "jive.cu":
-            cuda_backend._launch(lib.cdll, "anemoi_jive", x, out, inst.width, arg, consts)
+            cuda_backend._launch(lib.cdll, "anemoi_jive", x, out, inst.width, arg, consts,
+                                 ctypes.pointer(ctypes.c_int(-1)))
         else:
             cuda_backend._launch(lib.cdll, "anemoi_jive_mma", x, out, inst.width, arg, consts,
                                  cuda_backend.fragments(inst.field, x.device).data_ptr())
@@ -156,8 +174,8 @@ def run_kernel(lib, source: str, inst, arg: int, x: torch.Tensor) -> torch.Tenso
 def blocks_per_sm(lib, kernel: str) -> int:
     name, args = kernel.split("<")
     args = [int(a) for a in args.rstrip(">").split(",")]
-    if name == "jive_kernel":
-        return lib.cdll.anemoi_jive_blocks_per_sm(*args)
+    if name in ("jive_kernel", "jive_pasta_kernel"):
+        return lib.cdll.anemoi_jive_blocks_per_sm(*args, int(name == "jive_pasta_kernel"))
     if name == "jive_mma_kernel":
         return lib.cdll.anemoi_jive_mma_blocks_per_sm(*args)
     if name in ("permute_mma_kernel", "sponge_mma_kernel", "permute_mma_thread_kernel"):
@@ -188,8 +206,8 @@ def main() -> int:
         libs = dict(zip(jobs, pool.map(lambda j: build(*j), jobs)))
     print(f"{len(jobs)} builds, 16 at once: {time.perf_counter() - t:.1f} s", flush=True)
     rows = []
-    for source, kernel, macro, iname, arg, n in (k for k in KERNELS if k[0] in sources):
-        for words, field in FIELDS.items():
+    for source, kernel, macro, iname, arg, n, fields in (k for k in KERNELS if k[0] in sources):
+        for words, field in fields.items():
             inst = get_instance(field, iname)
             sponge = source == "sponge_mma.cu" and arg is None
             x = random_states(inst, n, seed=words, rows=elements(inst) if sponge else None)

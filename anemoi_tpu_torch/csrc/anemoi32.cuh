@@ -84,8 +84,9 @@ F32_FN void f32_copy(uint32_t r[NW], const uint32_t a[NW]) {
 // so one window table serves them all: word j of entry e at
 // tab[(e * NW + j) * stride].  The kernels give each thread its slots of a
 // shared-memory table with stride BLOCK (a warp's 32 loads of one word fall
-// in 32 banks), the host builds a local array with stride 1.
-template <int NW>
+// in 32 banks), the host builds a local array with stride 1.  Mod is the
+// modulus' shape that the products are compiled for (field32.cuh).
+template <int NW, class Mod = F32AnyModulus>
 struct ThreadArith {
     using Elem = uint32_t[NW];
     static constexpr bool LOCKSTEP = false, WINDOW = true;
@@ -95,10 +96,12 @@ struct ThreadArith {
     G32_MEMBER void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const { f32_add<NW>(r, a, b, c.p); }
     G32_MEMBER void sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const { f32_sub<NW>(r, a, b, c.p); }
     G32_MEMBER void mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) const {
-        f32_mont_mul<NW>(r, a, b, c.p, c.n0);
+        f32_mont_mul<NW, Mod>(r, a, b, c.p, c.n0);
     }
-    G32_MEMBER void sqr(uint32_t r[NW], const uint32_t a[NW]) const { f32_mont_sqr<NW>(r, a, c.p, c.n0); }
-    G32_MEMBER void mul_g(uint32_t r[NW], const uint32_t a[NW]) const { f32_mont_mul<NW>(r, a, c.beta, c.p, c.n0); }
+    G32_MEMBER void sqr(uint32_t r[NW], const uint32_t a[NW]) const { f32_mont_sqr<NW, Mod>(r, a, c.p, c.n0); }
+    G32_MEMBER void mul_g(uint32_t r[NW], const uint32_t a[NW]) const {
+        f32_mont_mul<NW, Mod>(r, a, c.beta, c.p, c.n0);
+    }
     G32_MEMBER void copy(uint32_t r[NW], const uint32_t a[NW]) const { f32_copy<NW>(r, a); }
     template <int N>
     G32_MEMBER void sqr_n(Elem* r, const Elem* a) const {
@@ -129,7 +132,7 @@ struct ThreadArith {
         for (int j = 0; j < NW; ++j) r[j] = tab[(e * NW + j) * stride];
     }
     G32_MEMBER void mul_tab(uint32_t r[NW], const uint32_t a[NW], int e) const {
-        f32_mont_mul<NW>(r, a, tab + e * NW * stride, c.p, c.n0, stride);
+        f32_mont_mul<NW, Mod>(r, a, tab + e * NW * stride, c.p, c.n0, stride);
     }
 };
 

@@ -86,13 +86,101 @@ F32_FN void f32_sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW], 
     }
 }
 
-// r = a * b / 2^(32 NW) mod p (CIOS).  Takes any a below 2^(32 NW) and b
-// below p: the sum before the last subtraction is below 2p.  r may alias a
-// or b.  Word i of b is at b[i * bs]: each is read once, at step i, so b
-// may lie in memory (the window table of anemoi32.cuh, in shared memory).
-template <int NW>
+// The modulus' shape, the policy of f32_mont_mul and f32_mont_sqr: what
+// they know of p when they are compiled.  f32_has_shape says whether a
+// modulus (p and n0 = -p^-1 mod 2^32) has a shape.
+//   * F32AnyModulus: any odd p below 2^(32 NW), read at run time.
+//   * F32PastaModulus: the Pasta primes' shape, Vesta's and Pallas's p =
+//     2^254 + c with c < 2^126 odd, at 8 words: p[0] = 1 (so n0 =
+//     0xFFFFFFFF), p[3] < 2^30, p[4..6] = 0 and p[7] = 2^30; words 1 to 3
+//     are read at run time (Vesta's and Pallas's differ there).  The
+//     product is taken in full and reduced by f32_pasta_redc.
+struct F32AnyModulus {
+    static constexpr bool PASTA = false;
+};
+struct F32PastaModulus {
+    static constexpr bool PASTA = true;
+};
+
+template <int NW, class Mod>
+F32_FN bool f32_has_shape(const uint32_t p[NW], uint32_t n0) {
+    if constexpr (!Mod::PASTA)
+        return true;
+    else
+        return NW == 8 && p[0] == 1u && n0 == 0xFFFFFFFFu && p[3] < 1u << 30 && p[4] == 0u && p[5] == 0u &&
+               p[6] == 0u && p[NW - 1] == 1u << 30;
+}
+
+// r = t / 2^256 mod p for t[16] below 2^256 p, p of the Pasta shape (t is
+// overwritten): the separated Montgomery reduction, word step i adding m *
+// p * 2^(32 i) with m = -t[i], as under F32AnyModulus, but
+//   * m * p[0] + t[i] is 0, carrying 1 unless t[i] = 0: no product;
+//   * three wide products, by p[1..3];
+//   * words 4 to 6 of p are 0, so the carry out of word i + 3 (below 2^31,
+//     as p[3] < 2^30) is not passed up through them: it is owed to word
+//     i + 4, which step i + 1 reaches with its product by p[3];
+//   * m * p[7] is m * 2^30, two shifts: the low word m << 30 goes into word
+//     i + 7, and the high word m >> 2 with the carry out of word i + 7
+//     (below 2^31) is owed to word i + 8, which step i + 1 reaches the same
+//     way.
+// Step i + 1's m reads word i + 1, which no owed carry reaches, so every m
+// is the same as under F32AnyModulus, and so is the sum: the two owed
+// carries go up once after the last step.
+F32_FN void f32_pasta_redc(uint32_t r[8], uint32_t t[16], const uint32_t p[8]) {
+    uint32_t k = 0, k7 = 0;  // the carries owed to words i + 4 and i + 8
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const uint32_t m = 0u - t[i];
+        uint64_t s = (uint64_t)m * p[1] + t[i + 1] + (uint32_t)(t[i] != 0);
+        t[i + 1] = (uint32_t)s;
+        s = (uint64_t)m * p[2] + t[i + 2] + (s >> 32);
+        t[i + 2] = (uint32_t)s;
+        s = (uint64_t)m * p[3] + t[i + 3] + (s >> 32) + k;
+        t[i + 3] = (uint32_t)s;
+        k = (uint32_t)(s >> 32);
+        s = (uint64_t)t[i + 7] + k7 + (m << 30);  // m * p[7]: its low word here, its high word m >> 2 owed
+        t[i + 7] = (uint32_t)s;
+        k7 = (uint32_t)(s >> 32) + (m >> 2);
+    }
+    uint64_t s = (uint64_t)t[11] + k;
+    t[11] = (uint32_t)s;
+#pragma unroll
+    for (int j = 12; j < 16; ++j) {
+        s = (uint64_t)t[j] + (j == 15 ? k7 : 0u) + (s >> 32);
+        t[j] = (uint32_t)s;
+    }
+    f32_reduce_once<8>(r, t + 8, (uint32_t)(s >> 32), p);
+}
+
+// r = a * b / 2^(32 NW) mod p (CIOS; under F32PastaModulus the full
+// product, then f32_pasta_redc).  Takes any a below 2^(32 NW) and b below
+// p: the sum before the last subtraction is below 2p.  r may alias a or b.
+// Word i of b is at b[i * bs]: each is read once, at step i, so b may lie
+// in memory (the window table of anemoi32.cuh, in shared memory).  p must
+// have Mod's shape.
+template <int NW, class Mod = F32AnyModulus>
 F32_FN void f32_mont_mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t* b, const uint32_t p[NW],
                          uint32_t n0, int bs = 1) {
+    if constexpr (Mod::PASTA) {
+        static_assert(NW == 8, "the Pasta shape is of 8 words");
+        uint32_t t[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) t[j] = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const uint32_t bi = b[i * bs];
+            uint64_t c = 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                uint64_t s = (uint64_t)a[j] * bi + t[i + j] + c;
+                t[i + j] = (uint32_t)s;
+                c = s >> 32;
+            }
+            t[i + 8] = (uint32_t)c;
+        }
+        f32_pasta_redc(r, t, p);
+        return;
+    }
     uint32_t t[NW + 2];
 #pragma unroll
     for (int j = 0; j < NW + 2; ++j) t[j] = 0;
@@ -127,8 +215,8 @@ F32_FN void f32_mont_mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t* b
 
 // r = a^2 / 2^(32 NW) mod p for a below p: the 2NW-word square from
 // NW(NW+1)/2 word products (each cross product once, then doubled), then a
-// separated Montgomery reduction.  r may alias a.
-template <int NW>
+// separated Montgomery reduction.  r may alias a.  p must have Mod's shape.
+template <int NW, class Mod = F32AnyModulus>
 F32_FN void f32_mont_sqr(uint32_t r[NW], const uint32_t a[NW], const uint32_t p[NW], uint32_t n0) {
     uint32_t t[2 * NW];
 #pragma unroll
@@ -159,6 +247,10 @@ F32_FN void f32_mont_sqr(uint32_t r[NW], const uint32_t a[NW], const uint32_t p[
         t[2 * i + 1] = (uint32_t)s;
         c = s >> 32;
     }
+    if constexpr (Mod::PASTA) {
+        f32_pasta_redc(r, t, p);
+        return;
+    }
     // reduce: add m_i * p * 2^(32 i) to clear word i; carries out of word
     // i + NW wait in `top` and enter at word i + NW + 1
     uint32_t top = 0;
@@ -184,8 +276,8 @@ F32_FN void f32_mont_sqr(uint32_t r[NW], const uint32_t a[NW], const uint32_t p[
 // c_in = 2^(64 NW - 13 NL) mod p (2^252 for 8 words, 2^378 for 12).  Inputs
 // are canonical, x < p < 2^(32 NW); the bits of x from 2^(32 NW) up (the
 // top four or six of the last limb) are dropped, so a larger x is taken
-// mod 2^(32 NW).
-template <int NW>
+// mod 2^(32 NW).  p must have Mod's shape.
+template <int NW, class Mod = F32AnyModulus>
 F32_FN void f32_from_limbs(uint32_t r[NW], const int32_t* src, size_t stride, const uint32_t c_in[NW],
                            const uint32_t p[NW], uint32_t n0) {
     uint32_t w[NW];
@@ -198,16 +290,16 @@ F32_FN void f32_from_limbs(uint32_t r[NW], const int32_t* src, size_t stride, co
         w[word] |= v << shift;
         if (shift + F32_LIMB_BITS > 32 && word + 1 < NW) w[word + 1] |= v >> (32 - shift);
     }
-    f32_mont_mul<NW>(r, w, c_in, p, n0);
+    f32_mont_mul<NW, Mod>(r, w, c_in, p, n0);
 }
 
 // a in R' form -> NL canonical 13-bit limbs in R form at dst[l * stride]:
-// one product by c_out = 2^(13 NL) mod p.
-template <int NW>
+// one product by c_out = 2^(13 NL) mod p.  p must have Mod's shape.
+template <int NW, class Mod = F32AnyModulus>
 F32_FN void f32_to_limbs(int32_t* dst, size_t stride, const uint32_t a[NW], const uint32_t c_out[NW],
                          const uint32_t p[NW], uint32_t n0) {
     uint32_t w[NW];
-    f32_mont_mul<NW>(w, a, c_out, p, n0);
+    f32_mont_mul<NW, Mod>(w, a, c_out, p, n0);
 #pragma unroll
     for (int l = 0; l < f32_limbs<NW>; ++l) {
         const int bit = l * F32_LIMB_BITS, word = bit / 32, shift = bit % 32;

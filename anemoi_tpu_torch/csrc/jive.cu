@@ -55,9 +55,20 @@
 // x^(1/alpha) and 468 per BLS12-381 one, where a binary ladder does 377 and
 // 573 and the reference's chain 293 and 454; the chain would need 13
 // to 30 live temporaries, which do not fit beside the 12-word width-4
-// state (246 to 254 registers, no spill, PERF.md).  Every product is
-// still a plain CIOS in C, without Hopper's carry-chained multiply-adds
-// (mad.lo.cc / madc.hi): the next step on the product.
+// state (246 to 254 registers, no spill, PERF.md).  And for the Pasta
+// moduli (Vesta, Pallas) the launcher picks jive_pasta_kernel, whose
+// products reduce under F32PastaModulus (field32.cuh): 120 IMADs a squaring
+// and 176 a product, three wide products a word step of the reduction
+// where any p needs eight and the multiply for m.  In the SASS of one
+// operation alone (a kernel of one squaring or one product between its
+// loads and stores, less those, built for PERF.md's count) a squaring is
+// 346 instructions against 381 and a product 392 against 448,
+// yet the kernel takes 0.82 times the time (PERF.md): the time follows the
+// wide products on the multiply-add pipe more than the instruction count.
+// Every product is still plain C, without Hopper's
+// carry-chained multiply-adds (mad.lo.cc / madc.hi): the next step on the
+// product, for every field; the carries' IMAD.X and the zeroed high halves
+// of the wide products' addends (IMAD.MOV) are what is left on that pipe.
 
 #include <stdint.h>
 #include <string.h>
@@ -68,14 +79,15 @@
 
 // Jive-k of one state: limb row r of the state at in[r * n], of the result
 // at out[r * n]; tab holds INV_ALPHA_TABLE * NW words at `stride` apart, the
-// thread's window table (ThreadArith).
-template <int W, int K, int NW>
+// thread's window table (ThreadArith).  The field's p must have the shape
+// Mod (field32.cuh).
+template <int W, int K, int NW, class Mod = F32AnyModulus>
 F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiConsts<NW>& c, uint32_t* tab,
                       int stride) {
     constexpr int OUT = W / K, NL = f32_limbs<NW>;
     uint32_t s[W][NW];
 #pragma unroll
-    for (int w = 0; w < W; ++w) f32_from_limbs<NW>(s[w], in + (size_t)w * NL * n, n, c.c_in, c.p, c.n0);
+    for (int w = 0; w < W; ++w) f32_from_limbs<NW, Mod>(s[w], in + (size_t)w * NL * n, n, c.c_in, c.p, c.n0);
     // the input half of the feed-forward sum, taken before the permutation
     uint32_t ff[OUT][NW];
 #pragma unroll
@@ -84,12 +96,12 @@ F32_FN void jive_lane(int32_t* out, const int32_t* in, size_t n, const AnemoiCon
 #pragma unroll
         for (int j = 1; j < K; ++j) f32_add<NW>(ff[i], ff[i], s[i + OUT * j], c.p);
     }
-    permute_state<W>(s, ThreadArith<NW>{c, tab, stride});
+    permute_state<W>(s, ThreadArith<NW, Mod>{c, tab, stride});
 #pragma unroll
     for (int i = 0; i < OUT; ++i) {
 #pragma unroll
         for (int j = 0; j < K; ++j) f32_add<NW>(ff[i], ff[i], s[i + OUT * j], c.p);
-        f32_to_limbs<NW>(out + (size_t)i * NL * n, n, ff[i], c.c_out, c.p, c.n0);
+        f32_to_limbs<NW, Mod>(out + (size_t)i * NL * n, n, ff[i], c.c_out, c.p, c.n0);
     }
 }
 
@@ -103,10 +115,24 @@ using Consts = AnemoiConsts<ANEMOI_WORDS>;
 // 80GB HBM3 at 700 W (PERF.md has the table); a value replaced the one
 // before only when faster by more than the sweep's own noise (the shipped
 // build against its twin).  The sweep builds with each value given by -D;
-// measure again when nvcc changes.
+// measure again when nvcc changes.  JIVE2_PASTA_MIN_BLOCKS,
+// JIVE42_PASTA_MIN_BLOCKS and JIVE44_PASTA_MIN_BLOCKS bound
+// jive_pasta_kernel<2, 2>, <4, 2> and <4, 4> (8 words only): at 4 blocks
+// <4, 4> builds without spills and <4, 2> does not.  JIVE44_MIN_BLOCKS
+// bounds jive_kernel<4, 4> apart from <4, 2>, JIVE4_MIN_BLOCKS's value
+// unless the sweep gives it one of its own.
 #if ANEMOI_WORDS == 8
 #ifndef JIVE2_MIN_BLOCKS
 #define JIVE2_MIN_BLOCKS 6
+#endif
+#ifndef JIVE2_PASTA_MIN_BLOCKS
+#define JIVE2_PASTA_MIN_BLOCKS 7
+#endif
+#ifndef JIVE42_PASTA_MIN_BLOCKS
+#define JIVE42_PASTA_MIN_BLOCKS 3
+#endif
+#ifndef JIVE44_PASTA_MIN_BLOCKS
+#define JIVE44_PASTA_MIN_BLOCKS 4
 #endif
 #else
 #ifndef JIVE2_MIN_BLOCKS
@@ -116,9 +142,12 @@ using Consts = AnemoiConsts<ANEMOI_WORDS>;
 #ifndef JIVE4_MIN_BLOCKS
 #define JIVE4_MIN_BLOCKS 1
 #endif
+#ifndef JIVE44_MIN_BLOCKS
+#define JIVE44_MIN_BLOCKS JIVE4_MIN_BLOCKS
+#endif
 
 template <int W, int K>
-__global__ void __launch_bounds__(BLOCK, W == 2 ? JIVE2_MIN_BLOCKS : JIVE4_MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK, W == 2 ? JIVE2_MIN_BLOCKS : K == 2 ? JIVE4_MIN_BLOCKS : JIVE44_MIN_BLOCKS)
     jive_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n,
                 const __grid_constant__ Consts c) {
     __shared__ uint32_t tab[INV_ALPHA_TABLE * ANEMOI_WORDS * BLOCK];  // 32 KB at 8 words, 48 KB at 12
@@ -127,20 +156,58 @@ __global__ void __launch_bounds__(BLOCK, W == 2 ? JIVE2_MIN_BLOCKS : JIVE4_MIN_B
     jive_lane<W, K, ANEMOI_WORDS>(out + lane, in + lane, (size_t)n, c, tab + threadIdx.x, BLOCK);
 }
 
+#if ANEMOI_WORDS == 8
+// jive_kernel with its products compiled for the Pasta moduli (Vesta,
+// Pallas): F32PastaModulus, which the launcher checks c.p and c.n0 against.
+template <int W, int K>
+__global__ void __launch_bounds__(BLOCK, W == 2 ? JIVE2_PASTA_MIN_BLOCKS
+                                   : K == 2 ? JIVE42_PASTA_MIN_BLOCKS
+                                            : JIVE44_PASTA_MIN_BLOCKS)
+    jive_pasta_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n,
+                      const __grid_constant__ Consts c) {
+    __shared__ uint32_t tab[INV_ALPHA_TABLE * ANEMOI_WORDS * BLOCK];  // 32 KB
+    const long long lane = (long long)blockIdx.x * BLOCK + threadIdx.x;
+    if (lane >= n) return;  // the ragged edge
+    jive_lane<W, K, 8, F32PastaModulus>(out + lane, in + lane, (size_t)n, c, tab + threadIdx.x, BLOCK);
+}
+#endif
+
 extern "C" {
 
+// 1 where p and n0 of the constants have the Pasta moduli's shape, so that
+// anemoi_jive launches jive_pasta_kernel; 0 otherwise.
+int anemoi_jive_pasta(const void* consts) {
+    Consts c;
+    memcpy(&c, consts, sizeof c);
+    return f32_has_shape<ANEMOI_WORDS, F32PastaModulus>(c.p, c.n0);
+}
+
 // Launches Jive-k on `stream` of `device`; returns the launch's cudaError_t.
-// The calling thread's current device is the same afterwards.
-int anemoi_jive(const void* in, void* out, long long n, int width, int k, const void* consts, int device,
-                void* stream) {
+// The kernel follows from the constants (anemoi_jive_pasta): *pasta says
+// which (1 or 0).  The calling thread's current device is the same
+// afterwards.
+int anemoi_jive(const void* in, void* out, long long n, int width, int k, const void* consts, int* pasta,
+                int device, void* stream) {
     if (!((width == 2 && k == 2) || (width == 4 && (k == 2 || k == 4)))) return (int)cudaErrorInvalidValue;
     Consts c;
     memcpy(&c, consts, sizeof c);
+    *pasta = anemoi_jive_pasta(consts);
     const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK)), block(BLOCK);
     cudaStream_t s = (cudaStream_t)stream;
     const int32_t* x = (const int32_t*)in;
     int32_t* y = (int32_t*)out;
     return launch_on(device, [&] {
+#if ANEMOI_WORDS == 8
+        if (*pasta) {
+            if (width == 2)
+                jive_pasta_kernel<2, 2><<<grid, block, 0, s>>>(x, y, n, c);
+            else if (k == 2)
+                jive_pasta_kernel<4, 2><<<grid, block, 0, s>>>(x, y, n, c);
+            else
+                jive_pasta_kernel<4, 4><<<grid, block, 0, s>>>(x, y, n, c);
+            return;
+        }
+#endif
         if (width == 2)
             jive_kernel<2, 2><<<grid, block, 0, s>>>(x, y, n, c);
         else if (k == 2)
@@ -155,17 +222,28 @@ const char* anemoi_error_string(int err) { return cudaGetErrorString((cudaError_
 // The layout of the constants this library takes: 507 words at 8, 759 at 12.
 int anemoi_jive_consts_words(void) { return (int)(sizeof(Consts) / 4); }
 
-// Blocks of jive_kernel<width, k> resident on one SM of the current device
+// Blocks of jive_kernel<width, k> (pasta 0) or jive_pasta_kernel<width, k>
+// (pasta 1; 8 words only) resident on one SM of the current device
 // (registers and shared memory permitting), or -1 on an error.
-int anemoi_jive_blocks_per_sm(int width, int k) {
+int anemoi_jive_blocks_per_sm(int width, int k, int pasta) {
     int blocks = -1;
     cudaError_t err = cudaErrorInvalidValue;
-    if (width == 2 && k == 2)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<2, 2>, BLOCK, 0);
+    if (!pasta) {
+        if (width == 2 && k == 2)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<2, 2>, BLOCK, 0);
+        else if (width == 4 && k == 2)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<4, 2>, BLOCK, 0);
+        else if (width == 4 && k == 4)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<4, 4>, BLOCK, 0);
+    }
+#if ANEMOI_WORDS == 8
+    else if (width == 2 && k == 2)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_pasta_kernel<2, 2>, BLOCK, 0);
     else if (width == 4 && k == 2)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<4, 2>, BLOCK, 0);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_pasta_kernel<4, 2>, BLOCK, 0);
     else if (width == 4 && k == 4)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_kernel<4, 4>, BLOCK, 0);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, jive_pasta_kernel<4, 4>, BLOCK, 0);
+#endif
     return err == cudaSuccess ? blocks : -1;
 }
 }

@@ -5,7 +5,10 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
 ``R = 2^(13L)``, canonical), any N, the ragged edge masked in the kernel.
 
   * ``jive`` (``csrc/jive.cu``, for ``jive_pallas``): fused Jive-k,
-    int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].  With a ``mul_impl``
+    int32 [WIDTH*L, N] -> int32 [(WIDTH/k)*L, N].  For a field whose
+    modulus has the Pasta primes' shape (Vesta, Pallas) the launcher picks
+    ``jive_pasta_kernel``, whose Montgomery reduction is compiled for that
+    shape, and ``jive_kernel`` for the others.  With a ``mul_impl``
     that starts with "mxu" (the JAX package's default product, on its matrix
     unit) it launches ``csrc/jive_mma.cu`` instead: one state a thread, as
     ``jive.cu``, with each Montgomery product's reduction on the tensor
@@ -39,8 +42,10 @@ Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
 ``limb_ops``) for a tensor on the CPU; it never falls back from one to the
 other.  Each counts its launches in ``<wrapper>.launches``;
-``permutation.group_launches`` counts those of them that went to the
-four-lane kernel, as the launcher reports the kernel it picked; the
+``jive.pasta_launches`` counts those of ``jive`` that went to
+``jive_pasta_kernel`` and ``permutation.group_launches`` those of
+``permutation`` that went to the four-lane kernel, as the launchers report
+the kernel they picked; the
 tensor-core kernels count theirs in ``jive_mma.launches``,
 ``permutation_mma.launches`` (and in ``permutation_mma.quad_launches``
 those that went to the quad form) and ``sponge_mma.launches``; the unpack
@@ -159,7 +164,10 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor, mul_impl: str | None = N
     name that starts with "mxu" (the JAX package's products on the matrix
     unit) to ``jive_mma_kernel``, whose reduction runs on the tensor cores,
     counted in ``jive_mma.launches``; every other name, and None, to
-    ``jive_kernel``.  A CPU tensor goes to ``jive_plain`` whatever the name:
+    ``jive_kernel``, or to ``jive_pasta_kernel`` where the field's modulus
+    has the Pasta primes' shape, as the launcher decides from the constants
+    and reports (counted in ``jive.pasta_launches`` as well).  A CPU tensor
+    goes to ``jive_plain`` whatever the name:
     the function is the same.  Inputs must be canonical, as everywhere in
     the port.  A name the JAX package rejects raises ValueError."""
     lo.check_tuning(mul_impl)
@@ -176,12 +184,22 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor, mul_impl: str | None = N
     if mma:
         jive_mma(lib, inst, k, x, out)
         return out
-    _launch(lib, "anemoi_jive", x, out, W, k, consts_words(inst).ctypes.data)
+    pasta = ctypes.c_int(-1)
+    _launch(lib, "anemoi_jive", x, out, W, k, consts_words(inst).ctypes.data, ctypes.pointer(pasta))
     jive.launches += 1
+    jive.pasta_launches += pasta.value == 1
     return out
 
 
 jive.launches = 0
+jive.pasta_launches = 0
+
+
+def pasta_shape(inst: InstanceParams) -> bool:
+    """Whether ``jive`` sends `inst` to ``jive_pasta_kernel``: the launcher's
+    own test of the constants' p and n0 (``anemoi_jive_pasta``; builds
+    ``jive.cu``, as a launch does)."""
+    return bool(library(inst.field.kernel_words).cdll.anemoi_jive_pasta(consts_words(inst).ctypes.data))
 
 
 def jive_mma(lib: ctypes.CDLL, inst: InstanceParams, k: int, x: torch.Tensor, out: torch.Tensor) -> None:
@@ -459,14 +477,17 @@ def unpack_consts(fp) -> np.ndarray:
 
 
 def launch_counts() -> dict:
-    """The wrappers' launch counts now: "jive", "jive_mma" (the tensor-core
-    Jive kernel), "permutation" (both integer permutation kernels),
+    """The wrappers' launch counts now: "jive" (both integer Jive kernels),
+    "jive_pasta" (those of them that went to ``jive_pasta_kernel``),
+    "jive_mma" (the tensor-core Jive kernel), "permutation" (both integer
+    permutation kernels),
     "four_lane" (those of them that went to the four-lane kernel),
     "sponge", "permutation_mma" (the tensor-core permutation's quad form,
     ``permute_mma_kernel``), "permutation_mma_thread" (its thread form,
     ``permute_mma_thread_kernel``), "sponge_mma" (the tensor-core sponge)
     and "unpack" (bytes to Montgomery limbs)."""
-    return {"jive": jive.launches, "jive_mma": jive_mma.launches, "permutation": permutation.launches,
+    return {"jive": jive.launches, "jive_pasta": jive.pasta_launches, "jive_mma": jive_mma.launches,
+            "permutation": permutation.launches,
             "four_lane": permutation.group_launches, "sponge": sponge.launches,
             "permutation_mma": permutation_mma.quad_launches,
             "permutation_mma_thread": permutation_mma.launches - permutation_mma.quad_launches,
@@ -522,9 +543,10 @@ def unpack_library(words: int) -> _build.Library:
 def library(words: int, defines: tuple = ()) -> _build.Library:
     """jive.cu for `words`-word fields, built at first use; `defines` (-D
     flags) only for measuring variants of the source's constants."""
-    built = _load("jive.cu", words, {"anemoi_jive": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
-                  "anemoi_jive_consts_words", defines)
-    _declare(built.cdll.anemoi_jive_blocks_per_sm, [ctypes.c_int, ctypes.c_int], ctypes.c_int)
+    launcher = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    built = _load("jive.cu", words, {"anemoi_jive": launcher}, "anemoi_jive_consts_words", defines)
+    _declare(built.cdll.anemoi_jive_blocks_per_sm, [ctypes.c_int] * 3, ctypes.c_int)
+    _declare(built.cdll.anemoi_jive_pasta, [ctypes.c_void_p], ctypes.c_int)
     return built
 
 

@@ -44,17 +44,27 @@ MAD_MASK = 0x1FFF
 BLOCK = 128  # threads a block in microbench.cu
 
 
-def imads_per_product(words: int) -> int:
-    """32-bit multiply-adds of one CIOS product (field32.cuh:f32_mont_mul):
-    words^2 a*b and words^2 m*p word products, low and high halves each,
-    and `words` low products m = t0 * n0.  264 at 8 words, 588 at 12."""
-    return 2 * 2 * words * words + words
+def imads_per_reduction(words: int, pasta: bool = False) -> int:
+    """32-bit multiply-adds of one Montgomery reduction (field32.cuh's CIOS):
+    any modulus (F32AnyModulus), words^2 m*p word products, low and high
+    halves each, and `words` low products m = t0 * n0, 136 at 8 words; the
+    Pasta moduli's shape (F32PastaModulus, 8 words only), m*p[1..3] alone,
+    48."""
+    return 2 * 3 * words if pasta else 2 * words * words + words
 
 
-def imads_per_squaring(words: int) -> int:
+def imads_per_product(words: int, pasta: bool = False) -> int:
+    """The same for one product (f32_mont_mul): words^2 a*b word products,
+    low and high halves each, and the reduction.  264 at 8 words (176 under
+    the Pasta shape), 588 at 12."""
+    return 2 * words * words + imads_per_reduction(words, pasta)
+
+
+def imads_per_squaring(words: int, pasta: bool = False) -> int:
     """The same for a squaring (f32_mont_sqr), which forms each of its
-    words(words+1)/2 distinct a_i*a_j once.  208 at 8 words, 456 at 12."""
-    return 2 * (words * (words + 1) // 2) + 2 * words * words + words
+    words(words+1)/2 distinct a_i*a_j once.  208 at 8 words (120 under the
+    Pasta shape), 456 at 12."""
+    return 2 * (words * (words + 1) // 2) + imads_per_reduction(words, pasta)
 
 
 @lru_cache(maxsize=None)

@@ -174,7 +174,8 @@ class FieldCheck:
 def kernel_launches(words: int, delta: dict) -> dict:
     """Launch counts under the names of ``chip_smoke.py``'s kernels line."""
     w = "_w12" if words == 12 else ""
-    return {f"jive{w}": delta["jive"], f"jive_mma{w}": delta["jive_mma"], f"permutation{w}": delta["four_lane"],
+    return {f"jive{w}": delta["jive"], f"jive_pasta{w}": delta["jive_pasta"], f"jive_mma{w}": delta["jive_mma"],
+            f"permutation{w}": delta["four_lane"],
             f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"],
             f"permutation_mma{w}": delta["permutation_mma"], f"permutation_mma_thread{w}": delta["permutation_mma_thread"],
             f"sponge_mma{w}": delta["sponge_mma"], f"unpack{w}": delta["unpack"]}

@@ -273,6 +273,8 @@ def permutation_work(inst, chain) -> tuple[int, int]:
 # The figures of the kernels before the 4-bit window and the four-lane permutation (PERF.md's table; NVIDIA H100 80GB
 # HBM3, 700.00 W), printed beside this run's: ptxas registers of every kernel (the sponge kernel's code must not
 # change), the binary-ladder kernels' times, and the sponge's, which must stay within 2%.
+# the one-thread Jive kernels of jive.cu: any modulus, and the Pasta moduli's shape (Vesta, Pallas)
+JIVE_KERNELS = ("jive_kernel", "jive_pasta_kernel")
 EARLIER_REGISTERS = {(8, "jive_kernel<2,2>"): 64, (8, "jive_kernel<4,2>"): 126, (8, "jive_kernel<4,4>"): 126,
                  (8, "permute_kernel<4>"): 96, (8, "permute_kernel<2>"): 60,
                  (8, "sponge_kernel<2>"): 44, (8, "sponge_kernel<4>"): 62,
@@ -492,18 +494,27 @@ def main() -> int:
     # lanes held against the plain version: both ends of N_CHECK, the ragged last block among them
     lanes = torch.cat([torch.arange(N_PLAIN // 2), torch.arange(N_CHECK - (N_PLAIN - N_PLAIN // 2), N_CHECK)]).to(dev)
 
-    def bound(inst, n_perms: int, n_bytes: int) -> dict:
+    def bound(inst, n_perms: int, n_bytes: int, pasta: bool = False) -> dict:
         """The least time for n_perms permutations of `inst` that move
         n_bytes: the larger of the operations at imad_per_s and the bytes
-        over the card's memory rate."""
+        over the card's memory rate.  `pasta`: the kernel's products reduce
+        under the Pasta moduli's shape (jive_pasta_kernel), and are counted
+        so."""
         words = inst.field.kernel_words
         squarings, products = permutation_work(inst, inv_alpha_chain(inst.field.name))
-        imads = squarings * mb.imads_per_squaring(words) + products * mb.imads_per_product(words)
+        per_sqr, per_mul = mb.imads_per_squaring(words, pasta), mb.imads_per_product(words, pasta)
+        imads = squarings * per_sqr + products * per_mul
         ops_ms = n_perms * imads / imad_per_s * 1e3
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        return {"words": words, "squarings": squarings, "products": products, "imads": imads, "ops_ms": ops_ms,
-                "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        return {"words": words, "squarings": squarings, "products": products, "per_squaring": per_sqr,
+                "per_product": per_mul, "imads": imads, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+    def jive_bound(inst, n_perms: int, n_bytes: int) -> dict:
+        """``bound`` for the integer Jive kernel the launcher picks for
+        `inst`: its products counted under the modulus shape it reduces
+        under."""
+        return bound(inst, n_perms, n_bytes, pasta=cuda_backend.pasta_shape(inst))
 
     def mma_bound(inst, n_perms: int, n_bytes: int) -> dict:
         """The least time for n_perms permutations of `inst` with the tensor-core product that move n_bytes: the
@@ -513,7 +524,7 @@ def main() -> int:
         kernels need) at INT8_MAC_PER_S, and the bytes over the card's memory rate."""
         w = inst.field.kernel_words
         squarings, products = permutation_work(inst, inv_alpha_chain(inst.field.name))
-        red = 2 * w * w + w
+        red = mb.imads_per_reduction(w)
         imads = squarings * (mb.imads_per_squaring(w) - red) + products * (mb.imads_per_product(w) - red)
         macs = (squarings + products) * (4 * w * 4 * w + 4 * w * (4 * w + 2))
         imad_ms, mac_ms = n_perms * imads / imad_per_s * 1e3, n_perms * macs / INT8_MAC_PER_S * 1e3
@@ -525,8 +536,8 @@ def main() -> int:
 
     def show_bound(what: str, b: dict, ms: float) -> None:
         w = b["words"]
-        print(f"  bound, {what}: per permutation {b['squarings']} squarings x {mb.imads_per_squaring(w)} + "
-              f"{b['products']} products x {mb.imads_per_product(w)} = {b['imads']} IMADs ({w} words) at "
+        print(f"  bound, {what}: per permutation {b['squarings']} squarings x {b['per_squaring']} + "
+              f"{b['products']} products x {b['per_product']} = {b['imads']} IMADs ({w} words) at "
               f"{imad_per_s:.4g}/s: {b['ops_ms']:.3f} ms; bytes {b['bytes_ms']:.4f} ms; kernel at "
               f"{b['bound_ms'] / ms:.1%} of it", flush=True)
 
@@ -781,8 +792,8 @@ def main() -> int:
         def blocks_per_sm(b, name: str) -> int:
             kernel, args = name.split("<")
             args = [int(a) for a in args.rstrip(">").split(",")]
-            if kernel == "jive_kernel":
-                return b.cdll.anemoi_jive_blocks_per_sm(*args)
+            if kernel in JIVE_KERNELS:
+                return b.cdll.anemoi_jive_blocks_per_sm(*args, JIVE_KERNELS.index(kernel))
             which = {"permute_kernel": 0, "permute_group_kernel": 1, "sponge_kernel": 2}[kernel]
             return b.cdll.anemoi_sponge_blocks_per_sm(which, *args)
 
@@ -798,7 +809,7 @@ def main() -> int:
                           + f"; {blocks_per_sm(b, name)} blocks per SM; SASS {c.get('instructions')} instructions, "
                           f"LDL {c.get('LDL')}, STL {c.get('STL')}, SHFL {c.get('SHFL')}, VOTE {c.get('VOTE')}, "
                           f"IMAD {c.get('IMAD')}", flush=True)
-                    if name.startswith(("jive_kernel", "permute_kernel")) and st + ld:
+                    if name.startswith((*JIVE_KERNELS, "permute_kernel")) and st + ld:
                         fail(f"{name} at {words} words spills ({st}/{ld} bytes): the one-thread kernels build "
                              f"without spills")
                     if name.startswith(("sponge_kernel", "permute_group_kernel")):
@@ -810,21 +821,28 @@ def main() -> int:
     # 3 ---------------------------------------------------------------------
     if run(3):
         phase("3 kernel vs plain version")
-        cases = [("vesta", "anemoi_2_1", 2), ("vesta", "anemoi_4_3", 2), ("vesta", "anemoi_4_3", 4)]
+        # each 8-word kernel at both widths: Vesta's modulus takes jive_pasta_kernel, BN-254's jive_kernel
+        cases = [("vesta", "anemoi_2_1", 2), ("vesta", "anemoi_4_3", 2), ("vesta", "anemoi_4_3", 4),
+                 ("bn_254", "anemoi_4_3", 2), ("bn_254", "anemoi_4_3", 4)]
         for field, iname, k in cases:
             inst = get_instance(field, iname)
             W, L = inst.width, inst.field.n_limbs
             x = canonical_states(inst, N_CHECK).reshape(W * L, N_CHECK)
+            pasta_before = cuda_backend.jive.pasta_launches
             out = cuda_backend.jive(inst, k, x)
+            kernel = JIVE_KERNELS[cuda_backend.jive.pasta_launches - pasta_before]
+            if kernel != JIVE_KERNELS[field == "vesta"]:
+                fail(f"{field}/{iname} k={k} went to {kernel}")
             plain_ms, plain = host_time_ms(lambda: cuda_backend.jive_plain(inst, k, x[:, lanes].contiguous()))
             held(out[:, lanes], plain, f"{field}/{iname} k={k}")
             if out.min() < 0 or out.max() >= 1 << 13:
                 fail(f"{field}/{iname} k={k}: limbs outside 13 bits")
-            print(f"  {field}/{iname} k={k}: {N_CHECK} lanes, {N_PLAIN} held against the plain version "
-                  f"({plain_ms / 1e3:.2f} s): identical", flush=True)
-        # the other 20-limb fields run the same instantiation with their own
-        # constants; every lane goes to the native oracle, whose calls cost
-        # a millisecond a lane on one core where the plain version's cost seconds
+            print(f"  {field}/{iname} k={k} ({kernel}<{W},{k}>): {N_CHECK} lanes, {N_PLAIN} held against the "
+                  f"plain version ({plain_ms / 1e3:.2f} s): identical", flush=True)
+        # the other 20-limb fields at width 2 with their own constants (Pallas
+        # in jive_pasta_kernel as Vesta, the others in jive_kernel as BN-254);
+        # every lane goes to the native oracle, whose calls cost a millisecond
+        # a lane on one core where the plain version's cost seconds
         for field in FIELDS_20:
             if field == "vesta":
                 continue
@@ -854,7 +872,7 @@ def main() -> int:
         leaves = torch.from_numpy(random_canonical(inst.field, (N_FULL,), rng)).to(dev)
         torch.cuda.synchronize()
 
-        cuda_backend.jive.launches = 0
+        cuda_backend.jive.launches = cuda_backend.jive.pasta_launches = 0
         digests = compress(states)
         before_root = cuda_backend.jive.launches
         root = tree.root(leaves)
@@ -862,20 +880,23 @@ def main() -> int:
         jive_launches = launches = cuda_backend.jive.launches
         root_launches = launches - before_root
         print(f"  main path: Jive over {N_FULL} states and a {N_FULL}-leaf root: {launches} kernel launches "
-              f"({root_launches} for the root)", flush=True)
+              f"({root_launches} for the root), {cuda_backend.jive.pasta_launches} of them jive_pasta_kernel",
+              flush=True)
         if launches == 0:
             fail("the main path launched no kernel")
+        if cuda_backend.jive.pasta_launches != launches:
+            fail(f"Vesta took jive_pasta_kernel in {cuda_backend.jive.pasta_launches} of {launches} launches")
         if root_launches != tree.num_levels(N_FULL):
             fail(f"the root took {root_launches} launches for {tree.num_levels(N_FULL)} levels")
         if tuple(digests.shape) != (1, L, N_FULL) or tuple(root.shape) != (L, 1):
             fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
 
         jive_ms = ms = mb.event_ms(lambda: compress(states), REPS)
-        jive_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
+        vesta_jive_bound = jive_bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
         print(f"  Jive 2-to-1, {N_FULL} states: {ms:.3f} ms per call, {ms * 1e3 / N_FULL:.4f} us per hash, "
               f"{N_FULL / (ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up; "
               f"{was('jive vesta', ms)})", flush=True)
-        show_bound(f"vesta/anemoi_2_1 Jive, {N_FULL} states", jive_bound, jive_ms)
+        show_bound(f"vesta/anemoi_2_1 Jive, {N_FULL} states", vesta_jive_bound, jive_ms)
 
         sample = torch.from_numpy(np.sort(rng.choice(N_FULL, N_SAMPLE, replace=False))).to(dev)
         xs = states[:, :, sample].reshape(W * L, N_SAMPLE).contiguous()
@@ -1140,7 +1161,7 @@ def main() -> int:
             fail(f"shapes {tuple(digests.shape)}, {tuple(root.shape)}")
 
         jive12_ms = mb.event_ms(lambda: compress(states), REPS)
-        jive12_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
+        jive12_bound = jive_bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
         print(f"  Jive 2-to-1, {N_FULL} states: {jive12_ms:.3f} ms per call, {jive12_ms * 1e3 / N_FULL:.4f} us per hash, "
               f"{N_FULL / (jive12_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up; "
               f"{was('jive bls12_381', jive12_ms)})", flush=True)
@@ -1184,7 +1205,7 @@ def main() -> int:
         compress = jive_compress_batch_fn(inst, 2, device=dev)
         out = compress(states)
         jive377_ms = mb.event_ms(lambda: compress(states), REPS)
-        jive377_bound = bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
+        jive377_bound = jive_bound(inst, N_FULL, N_FULL * (inst.width + 1) * L * 4)
         print(f"  BLS12-377 Jive 2-to-1, {N_FULL} states: {jive377_ms:.3f} ms per call, "
               f"{N_FULL / (jive377_ms / 1e3):.1f} hashes/s ({smi}; CUDA events, mean of {REPS} after a warm-up; "
               f"{was('jive bls12_377', jive377_ms)})", flush=True)
@@ -1517,11 +1538,11 @@ def main() -> int:
                 torch.cuda.synchronize()
             slice4["trace"] = {"jive": cuda_backend.jive.launches}
             events = json.loads(prof.trace_path.read_text())["traceEvents"]
-        names = sorted({str(e.get("name")) for e in events if "jive_kernel" in str(e.get("name", ""))})
+        names = sorted({name for e in events if any(k in (name := str(e.get("name", ""))) for k in JIVE_KERNELS)})
         if not names or slice4["trace"]["jive"] != 1:
             fail(f"the trace names no Jive kernel ({slice4['trace']['jive']} launches)")
         device_us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-                        for e in prof.key_averages() if "jive_kernel" in e.key)
+                        for e in prof.key_averages() if any(k in e.key for k in JIVE_KERNELS))
         held(traced, untraced, "the traced Jive", "jive")
         canon = digest_export_fn(inst)(traced)
         debug.check_limbs(canon, inst.field, what="the traced Jive's canonical digests")
@@ -1579,7 +1600,7 @@ def main() -> int:
         inst = get_instance("vesta", "anemoi_4_3")
         L = inst.field.n_limbs
         # (4^12 - 1) / 3 Jive-4 nodes, one permutation each; the leaves read once, the root written once
-        tree_bound = bound(inst, (TREE_LEAVES - 1) // 3, (TREE_LEAVES + 1) * L * 4)
+        tree_bound = jive_bound(inst, (TREE_LEAVES - 1) // 3, (TREE_LEAVES + 1) * L * 4)
         slice5.update(tree_ms=tree["ms"], tree_bound=tree_bound, tree_launches=tree["launches"]["jive"])
         print(f"  BASELINE config 4, the arity-4 Vesta 4_3 tree over {TREE_LEAVES} leaves: {tree['ms']:.3f} ms "
               f"({smi}; the median of 2 reps, host clock, synchronized), {tree['launches']['jive']} Jive launches "
@@ -1874,6 +1895,7 @@ def main() -> int:
                             cuda_backend.permutation_mma, cuda_backend.sponge_mma, cuda_backend.unpack):
                 counter.launches = 0
             cuda_backend.permutation.group_launches = cuda_backend.permutation_mma.quad_launches = 0
+            cuda_backend.jive.pasta_launches = 0
 
         def in_turns(kernel, mma_kernel, reps: int) -> tuple[float, float]:
             """The two calls timed with CUDA events in turns kernel, mma, mma, kernel, `reps` calls a turn, after
@@ -2070,7 +2092,7 @@ def main() -> int:
     # 15 --------------------------------------------------------------------
     if run(15):
         phase("15 kernels")
-        jive43_bound = bound(get_instance("bls12_381", "anemoi_4_3"), N_FULL, 0)
+        jive43_bound = jive_bound(get_instance("bls12_381", "anemoi_4_3"), N_FULL, 0)
         print(f"  bound, bls12_381/anemoi_4_3 Jive, {N_FULL} states (not run at full size): "
               f"{jive43_bound['ops_ms']:.3f} ms", flush=True)
         chain_bls = chain["bls12_381"]
@@ -2079,7 +2101,7 @@ def main() -> int:
         measured_imad_per_s = mad_rate * sms * max_sm_mhz * 1e6
         print(f"  the bound at the measured rate: {measured_imad_per_s:.4g} IMADs/s ({mad_rate:.3f} per clock per SM) "
               f"against {imad_per_s:.4g}/s ({IMAD_PER_CLOCK_PER_SM}):", flush=True)
-        for what, b, ms in (("vesta/anemoi_2_1 Jive", jive_bound, jive_ms),
+        for what, b, ms in (("vesta/anemoi_2_1 Jive", vesta_jive_bound, jive_ms),
                             ("bls12_381/anemoi_2_1 Jive", jive12_bound, jive12_ms),
                             ("bls12_377/anemoi_2_1 Jive", jive377_bound, jive377_ms),
                             ("vesta/anemoi_4_3 sponge, 4,096 x 10 KB", sponge_bound["anemoi_4_3"],
@@ -2107,8 +2129,8 @@ def main() -> int:
         ops = lambda ms: {"bound_ms": ms, "bound_by": "operations"}
         print(json.dumps({"kernels": [
             entry("jive", "anemoi_tpu_torch/csrc/jive.cu", "anemoi_tpu/ff/pallas_backend.py:707", jive_launches,
-                  jive_ms, jive_plain_ms, jive_bound, words=8, lanes=N_FULL, plain_lanes=N_SAMPLE, root_ms=root_ms,
-                  oracle_lanes=N_ORACLE_FULL, oracle_root_leaves=ORACLE_TREE,
+                  jive_ms, jive_plain_ms, vesta_jive_bound, words=8, lanes=N_FULL, plain_lanes=N_SAMPLE,
+                  root_ms=root_ms, oracle_lanes=N_ORACLE_FULL, oracle_root_leaves=ORACLE_TREE,
                   cli_merkle_launches=slice4["cli_merkle"]["jive"], cli_merkle_wall_s=slice4["cli_merkle"]["wall_s"],
                   forest_launches=slice4["forest"]["jive"], trace_launches=slice4["trace"]["jive"],
                   bench_launches=slice5["bench"]["jive"], verify_launches=slice5["verify"]["jive"],

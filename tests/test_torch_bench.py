@@ -98,7 +98,7 @@ def test_bench_runs_pass_parity(case, oracle_plain):
     run = call()
     assert run["value"] > 0 and run["n"] == n and run["parity"] == "ok" and run["parity_lanes"] == checked
     assert len(run["times"]) == 1 and isinstance(run["checksum"], int) and run["words"] == 8
-    assert run["launches"] == {"jive": 0, "jive_mma": 0, "permutation": 0, "four_lane": 0, "sponge": 0,
+    assert run["launches"] == {"jive": 0, "jive_pasta": 0, "jive_mma": 0, "permutation": 0, "four_lane": 0, "sponge": 0,
                                "permutation_mma": 0, "permutation_mma_thread": 0, "sponge_mma": 0,
                                "unpack": 0}  # no kernel on the CPU
     if case == "sponge":

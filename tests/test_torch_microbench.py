@@ -75,10 +75,14 @@ def _mad_ints(vals, n_iter):
     return out
 
 
-def test_imad_counts():
-    """The bound's IMAD counts per squaring and product (chip_smoke.py)."""
-    assert (mb.imads_per_squaring(8), mb.imads_per_product(8)) == (208, 264)
-    assert (mb.imads_per_squaring(12), mb.imads_per_product(12)) == (456, 588)
+@pytest.mark.parametrize("words, pasta, want", [(8, False, (208, 264, 136)), (12, False, (456, 588, 300)),
+                                               (8, True, (120, 176, 48))])
+def test_imad_counts(words, pasta, want):
+    """The bound's IMAD counts per squaring, product and reduction
+    (chip_smoke.py), for any modulus and for the Pasta moduli's shape,
+    whose reduction keeps three of its eight wide products a word step."""
+    assert (mb.imads_per_squaring(words, pasta), mb.imads_per_product(words, pasta),
+            mb.imads_per_reduction(words, pasta)) == want
 
 
 @pytest.mark.parametrize("field", ["vesta", "bls12_381"])

@@ -36,7 +36,7 @@ def test_verify_cpu_all_pass(oracle_plain, capsys):
     for what in ("anemoi_2_1 permutation", "anemoi_4_3 permutation", "jive-2", "jive-4", "sponge (E=7)",
                  "merkle root, 16 leaves"):
         assert any(what in line for line in checks), what
-    assert lines[-2] == ('launches: {"jive": 0, "jive_mma": 0, "permutation": 0, "permutation_thread": 0, '
+    assert lines[-2] == ('launches: {"jive": 0, "jive_pasta": 0, "jive_mma": 0, "permutation": 0, "permutation_thread": 0, '
                          '"sponge": 0, "permutation_mma": 0, "permutation_mma_thread": 0, "sponge_mma": 0, '
                          '"unpack": 0}')
     assert lines[-1].endswith("ALL PASS")
