@@ -142,10 +142,9 @@ def cmd_info(args, device: torch.device) -> int:
 
 
 def _stats(seconds: float) -> str:
-    perm = cuda_backend.permutation
-    return (f"seconds: {seconds:.6f}; launches: jive {cuda_backend.jive.launches}, permutation {perm.launches} "
-            f"(four-lane {perm.group_launches}), sponge {cuda_backend.sponge.launches}, "
-            f"unpack {cuda_backend.unpack.launches}")
+    n = cuda_backend.launch_counts()
+    return (f"seconds: {seconds:.6f}; launches: jive {n['jive']}, permutation {n['permutation']} "
+            f"(four-lane {n['four_lane']}), sponge {n['sponge']}, unpack {n['unpack']}")
 
 
 def main(argv=None) -> int:

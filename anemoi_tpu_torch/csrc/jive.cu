@@ -49,8 +49,8 @@
 // 5,250 Montgomery squarings (208 IMADs each, low and high halves) and
 // 987 products (264 IMADs each): ~1.35 M IMADs; a BLS12-381 2_1 Jive moves
 // 360 bytes and needs 7,980 squarings of 456 IMADs and 1,638 products of
-// 588: ~4.6 M.  Compute-bound by three orders of magnitude (chip_smoke.py
-// computes it; PERF.md has the numbers).  What the design does about that:
+// 588: ~4.6 M.  Compute-bound by three orders of magnitude (PERF.md has
+// the numbers).  What the design does about that:
 // it issues fewer products.  The window does 316 operations per Vesta
 // x^(1/alpha) and 468 per BLS12-381 one, where a binary ladder does 377 and
 // 573 and the reference's chain 293 and 454; the chain would need 13

@@ -35,17 +35,17 @@
 // What bounds it on the card, per product at 8 words (12 in brackets): the
 // IMADs of the bilinear half, NW^2 = 64 [144] 32 x 32 -> 64-bit word
 // products, 2 IMADs each, half that for a squaring; the tensor cores' u8
-// MACs, 32 states x 8 columns x 32 [48] K x 9 [13] tiles (chip_smoke.py's
-// bound counts the columns the product needs, 4 NW x 4 NW for m and
-// 4 NW x (4 NW + 2) for U); and the work around them: the recombination of
+// MACs, 32 states x 8 columns x 32 [48] K x 9 [13] tiles (of them the
+// product needs 4 NW x 4 NW for m and 4 NW x (4 NW + 2) for U); and the
+// work around them: the recombination of
 // each lane's byte columns into words (a multiply-add by 2^8 or 2^16 a
 // column), the scratch rows' stores and loads, the carry chains.  What the
 // design does about each: the reduction's IMADs (136 [300] of f32_mont_mul's
 // 264 [588]) move to the tensor cores; squarings, 80% of the window's
 // products, run at half the bilinear cost; no carry crosses a lane; the low
 // half of U is never summed.  sass.py counts the instructions of one
-// squaring and one product, and chip_smoke.py times the kernel beside
-// jive_kernel; PERF.md has the numbers.
+// squaring and one product, and bounds_sweep.py times the kernel; PERF.md
+// has the numbers.
 
 #include <stdint.h>
 #include <string.h>

@@ -1,6 +1,6 @@
 // Two microbenchmarks on Hopper (sm_90a): the counterparts of the repo's
-// two TPU measurement kernels, which calibrate the bound that chip_smoke.py
-// holds the hash kernels to.
+// two TPU measurement kernels, which measure the card's integer
+// multiply-add rate.
 //
 //   * sqr_chain_kernel<NW> replaces tools/mxu_prototype.py:chain_kernel
 //     (its sos / sosp / mxu / cios2 schedules of one function): int32
@@ -15,8 +15,8 @@
 //     i = 0 .. n_iter - 1, one thread per element.  int32 arithmetic wraps
 //     mod 2^32 as in XLA; the mask keeps acc below 2^13 after the first
 //     iteration.  Its slope is the iterations an SM sustains a clock: the
-//     measured counterpart of the 64 IMADs per clock per SM that
-//     chip_smoke.py's bound assumes, though an iteration also compiles to
+//     measured counterpart of the 64 IMADs per clock per SM of the card's
+//     throughput table, though an iteration also compiles to
 //     about 1.75 integer add and logic instructions besides its IMAD
 //     (PERF.md reads the SASS).  On the TPU the question
 //     was layout (vregs at 1/8 sublane use); on the card it is how many

@@ -74,8 +74,7 @@
 // them and reads 26,480 bytes, so the sponge is compute-bound by four orders
 // of magnitude.  A BLS12-381 4_3 permutation is ~6.17 M IMADs (12-word
 // squarings of 456 IMADs, products of 588), and a 10 KB message (218
-// elements of 47 bytes) takes 73 of them.  chip_smoke.py computes the
-// bound (the work, whatever the lanes); PERF.md has the numbers.  The group
+// elements of 47 bytes) takes 73 of them.  PERF.md has the numbers.  The group
 // product does the same word products as one thread, split four ways, plus
 // three shuffles a word step and a few votes.
 
@@ -191,7 +190,7 @@ using Consts = AnemoiConsts<ANEMOI_WORDS>;
 // (four lanes a state); above it, permute_kernel (one thread a state).  The
 // largest N of 4,096, 8,192, 16,384 and 65,536 at which the group kernel
 // was the faster of the two on an H100 80GB HBM3 at 700 W (Vesta 4_3 at 8
-// words, BLS12-381 4_3 at 12; chip_smoke.py phases 8 and 13, PERF.md).
+// words, BLS12-381 4_3 at 12; PERF.md).
 #define PERMUTE_GROUP_MAX 8192
 
 // The blocks an SM each permutation kernel is built for, the second bound

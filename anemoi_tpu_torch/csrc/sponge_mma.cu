@@ -55,8 +55,7 @@
 // bench's sponge and BatchedSponge's .batch take no mul_impl).  The bound is
 // the larger of each product's IMADs left on the integer pipe (NW^2 products
 // of 32 x 32 -> 64 bits, 2 IMADs each), the tensor cores' u8 MACs (4 NW x 4
-// NW for m, 4 NW x (4 NW + 2) for U) and the bytes; chip_smoke.py (phase 19)
-// computes it for each size and times both forms, and PERF.md has the
+// NW for m, 4 NW x (4 NW + 2) for U) and the bytes; PERF.md has the
 // numbers.
 //
 // Every lane of a warp must reach every mma, so there is no early return at
@@ -76,7 +75,7 @@
 // (permute_mma_kernel); above it, the thread form (permute_mma_thread_kernel).
 // The largest N of 4,096, 8,192, 16,384 and 65,536 at which the quad form
 // was the faster of the two on an NVIDIA H100 80GB HBM3 at 700.00 W (Vesta
-// 4_3 at 8 words, BLS12-381 4_3 at 12; chip_smoke.py phase 19, PERF.md).
+// 4_3 at 8 words, BLS12-381 4_3 at 12; PERF.md).
 #define PERMUTE_MMA_GROUP_MAX 8192
 
 // The form anemoi_permute_mma launches for n states: the quad form (true)

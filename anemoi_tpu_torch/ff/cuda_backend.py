@@ -41,15 +41,8 @@ their I/O contract: int32 limb-major tensors (13-bit limbs, Montgomery
 Each wrapper launches its kernel for a tensor on the card, and runs its
 plain version (``*_plain``: the layers of ``permutation/batched.py`` over
 ``limb_ops``) for a tensor on the CPU; it never falls back from one to the
-other.  Each counts its launches in ``<wrapper>.launches``;
-``jive.pasta_launches`` counts those of ``jive`` that went to
-``jive_pasta_kernel`` and ``permutation.group_launches`` those of
-``permutation`` that went to the four-lane kernel, as the launchers report
-the kernel they picked; the
-tensor-core kernels count theirs in ``jive_mma.launches``,
-``permutation_mma.launches`` (and in ``permutation_mma.quad_launches``
-those that went to the quad form) and ``sponge_mma.launches``; the unpack
-kernel in ``unpack.launches``.  The kernels
+other.  Each counts a launch under the kernel the launcher reports it
+picked; ``launch_counts()`` reads the counts.  The kernels
 cover every field: each source is built once per word count (8 for the
 20-limb fields, 12 for the 30-limb ones), and a wrapper launches the
 library of its field's ``kernel_words``.
@@ -74,6 +67,10 @@ KERNEL_SHAPES = ((2, 2), (4, 2), (4, 4))  # (WIDTH, k) instantiated in jive.cu
 KERNEL_WORDS = (8, 12)  # the word counts each source is built for
 _MAX_ROUND_COLUMNS = 28  # rounds * columns of the largest instance
 _UNPACK_PLAIN_SLOTS = 1 << 16  # (element, message) pairs unpack_plain takes a pass
+# launches of each kernel, as its launcher reports it; launch_counts() reads them
+_launches = dict.fromkeys(("jive_kernel", "jive_pasta_kernel", "jive_mma_kernel", "permute_kernel",
+                           "permute_group_kernel", "sponge_kernel", "permute_mma_kernel",
+                           "permute_mma_thread_kernel", "sponge_mma_kernel", "unpack_kernel"), 0)
 
 
 def consts_len(words: int) -> int:
@@ -162,13 +159,12 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor, mul_impl: str | None = N
 
     A CUDA tensor goes to a kernel (or the call raises): a ``mul_impl``
     name that starts with "mxu" (the JAX package's products on the matrix
-    unit) to ``jive_mma_kernel``, whose reduction runs on the tensor cores,
-    counted in ``jive_mma.launches``; every other name, and None, to
-    ``jive_kernel``, or to ``jive_pasta_kernel`` where the field's modulus
-    has the Pasta primes' shape, as the launcher decides from the constants
-    and reports (counted in ``jive.pasta_launches`` as well).  A CPU tensor
-    goes to ``jive_plain`` whatever the name:
-    the function is the same.  Inputs must be canonical, as everywhere in
+    unit) to ``jive_mma_kernel``, whose reduction runs on the tensor cores;
+    every other name, and None, to ``jive_kernel``, or to
+    ``jive_pasta_kernel`` where the field's modulus has the Pasta primes'
+    shape, as the launcher decides from the constants and reports.  A CPU
+    tensor goes to ``jive_plain`` whatever the name: the function is the
+    same.  Inputs must be canonical, as everywhere in
     the port.  A name the JAX package rejects raises ValueError."""
     lo.check_tuning(mul_impl)
     W, L = inst.width, inst.field.n_limbs
@@ -186,13 +182,8 @@ def jive(inst: InstanceParams, k: int, x: torch.Tensor, mul_impl: str | None = N
         return out
     pasta = ctypes.c_int(-1)
     _launch(lib, "anemoi_jive", x, out, W, k, consts_words(inst).ctypes.data, ctypes.pointer(pasta))
-    jive.launches += 1
-    jive.pasta_launches += pasta.value == 1
+    _launches["jive_pasta_kernel" if pasta.value == 1 else "jive_kernel"] += 1
     return out
-
-
-jive.launches = 0
-jive.pasta_launches = 0
 
 
 def pasta_shape(inst: InstanceParams) -> bool:
@@ -204,13 +195,10 @@ def pasta_shape(inst: InstanceParams) -> bool:
 
 def jive_mma(lib: ctypes.CDLL, inst: InstanceParams, k: int, x: torch.Tensor, out: torch.Tensor) -> None:
     """Launches ``jive_mma_kernel`` of `lib` (``csrc/jive_mma.cu``) on CUDA
-    states into `out`; counted in ``jive_mma.launches``."""
+    states into `out`."""
     _launch(lib, "anemoi_jive_mma", x, out, inst.width, k, consts_words(inst).ctypes.data,
             fragments(inst.field, x.device).data_ptr())
-    jive_mma.launches += 1
-
-
-jive_mma.launches = 0
+    _launches["jive_mma_kernel"] += 1
 
 
 @lru_cache(maxsize=None)
@@ -235,10 +223,9 @@ def permutation(inst: InstanceParams, x: torch.Tensor, mul_impl: str | None = No
     [WIDTH*L, N].  A CUDA tensor goes to a kernel (or the call raises): a
     ``mul_impl`` name that starts with "mxu" to the tensor-core kernels,
     whose reduction runs on the tensor cores, the quad form up to
-    ``permute_mma_group_max`` states and the thread form above, counted in
-    ``permutation_mma.launches``; every other name, and None, to the
-    four-lane kernel up to ``permute_group_max`` states and the one-thread
-    kernel above.  A CPU tensor goes to ``permutation_plain`` whatever the
+    ``permute_mma_group_max`` states and the thread form above; every other
+    name, and None, to the four-lane kernel up to ``permute_group_max``
+    states and the one-thread kernel above.  A CPU tensor goes to ``permutation_plain`` whatever the
     name.  A name the JAX package rejects raises ValueError."""
     lo.check_tuning(mul_impl)
     W, L = inst.width, inst.field.n_limbs
@@ -249,28 +236,16 @@ def permutation(inst: InstanceParams, x: torch.Tensor, mul_impl: str | None = No
     if selects_mma(mul_impl):
         return permutation_mma(inst, x)
     out, group = _permute(inst, x, -1)
-    permutation.launches += 1
-    permutation.group_launches += group
+    _launches["permute_group_kernel" if group else "permute_kernel"] += 1
     return out
-
-
-permutation.launches = 0
-permutation.group_launches = 0
 
 
 def permutation_mma(inst: InstanceParams, x: torch.Tensor) -> torch.Tensor:
     """Launches the tensor-core permutation (``csrc/sponge_mma.cu``) on
-    CUDA states, the launcher picking the form by N; counted in
-    ``permutation_mma.launches`` and, when the launcher reports the quad
-    form, in ``permutation_mma.quad_launches``."""
+    CUDA states, the launcher picking the form by N."""
     out, quad = _permute_mma(inst, x, -1)
-    permutation_mma.launches += 1
-    permutation_mma.quad_launches += quad
+    _launches["permute_mma_kernel" if quad else "permute_mma_thread_kernel"] += 1
     return out
-
-
-permutation_mma.launches = 0
-permutation_mma.quad_launches = 0
 
 
 def permute_mma_group_max(words: int) -> int:
@@ -312,7 +287,7 @@ def permutation_with(inst: InstanceParams, x: torch.Tensor, group: bool) -> torc
     """The permutation of CUDA states by the named kernel, the four-lane one
     (``group``) or the one-thread one, whatever N: for timing the two
     against each other and holding each against the plain version.  Not a
-    path of the port, so not counted in ``permutation.launches``."""
+    path of the port, so not counted."""
     W, L = inst.width, inst.field.n_limbs
     if not _check(inst, x, W * L):
         raise ValueError("permutation_with takes a CUDA tensor")
@@ -365,9 +340,8 @@ def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor, mul_impl: s
     int32 [E*L, N] Montgomery limbs -> int32 [DIGEST*L, N].  A CUDA tensor
     goes to a kernel (or the call raises): a ``mul_impl`` name that starts
     with "mxu" to ``sponge_mma_kernel``, whose reduction runs on the tensor
-    cores, counted in ``sponge_mma.launches``; every other name, and None,
-    to ``sponge_kernel``.  A CPU tensor goes to ``sponge_plain`` whatever
-    the name.  A name the JAX package rejects raises ValueError."""
+    cores; every other name, and None, to ``sponge_kernel``.  A CPU tensor
+    goes to ``sponge_plain`` whatever the name.  A name the JAX package rejects raises ValueError."""
     lo.check_tuning(mul_impl)
     L, rate, ds = inst.field.n_limbs, inst.rate, inst.digest_size
     if num_elements < rate:
@@ -383,23 +357,17 @@ def sponge(inst: InstanceParams, num_elements: int, x: torch.Tensor, mul_impl: s
         sponge_mma(lib, inst, num_elements, x, out)
         return out
     _launch(lib, "anemoi_sponge", x, out, inst.width, num_elements, consts_words(inst).ctypes.data)
-    sponge.launches += 1
+    _launches["sponge_kernel"] += 1
     return out
-
-
-sponge.launches = 0
 
 
 def sponge_mma(lib: ctypes.CDLL, inst: InstanceParams, num_elements: int, x: torch.Tensor,
                out: torch.Tensor) -> None:
     """Launches ``sponge_mma_kernel`` of `lib` (``csrc/sponge_mma.cu``) on
-    CUDA messages into `out`; counted in ``sponge_mma.launches``."""
+    CUDA messages into `out`."""
     _launch(lib, "anemoi_sponge_mma", x, out, inst.width, num_elements, consts_words(inst).ctypes.data,
             fragments(inst.field, x.device).data_ptr())
-    sponge_mma.launches += 1
-
-
-sponge_mma.launches = 0
+    _launches["sponge_mma_kernel"] += 1
 
 
 # --------------------------------------------------------------------------
@@ -444,8 +412,8 @@ def unpack(inst: InstanceParams, num_elements: int, data: torch.Tensor, spans: t
     [nbytes], the messages joined; ``spans`` int64 [2, B], each message's
     offset in ``data`` and its length.  Chunking, padding and limbs as
     ``native.pack_bytes``, then ``limb_ops.to_mont``.  CUDA tensors go to
-    ``unpack_kernel`` (``csrc/unpack.cu``), counted in ``unpack.launches``;
-    CPU tensors to ``unpack_plain``."""
+    ``unpack_kernel`` (``csrc/unpack.cu``), CPU tensors to
+    ``unpack_plain``."""
     if data.dtype != torch.uint8 or data.dim() != 1 or spans.dtype != torch.int64 or spans.dim() != 2 \
             or spans.shape[0] != 2 or spans.device != data.device:
         raise ValueError(f"expected uint8 [nbytes] and int64 [2, B] on one device, got {data.dtype} "
@@ -460,11 +428,8 @@ def unpack(inst: InstanceParams, num_elements: int, data: torch.Tensor, spans: t
         return out
     _launch(unpack_library(fp.kernel_words).cdll, "anemoi_unpack", spans, out, data.data_ptr(), num_elements,
             fp.byte_chunk, fp.n_limbs, unpack_consts(fp).ctypes.data)
-    unpack.launches += 1
+    _launches["unpack_kernel"] += 1
     return out
-
-
-unpack.launches = 0
 
 
 @lru_cache(maxsize=None)
@@ -486,12 +451,12 @@ def launch_counts() -> dict:
     ``permute_mma_kernel``), "permutation_mma_thread" (its thread form,
     ``permute_mma_thread_kernel``), "sponge_mma" (the tensor-core sponge)
     and "unpack" (bytes to Montgomery limbs)."""
-    return {"jive": jive.launches, "jive_pasta": jive.pasta_launches, "jive_mma": jive_mma.launches,
-            "permutation": permutation.launches,
-            "four_lane": permutation.group_launches, "sponge": sponge.launches,
-            "permutation_mma": permutation_mma.quad_launches,
-            "permutation_mma_thread": permutation_mma.launches - permutation_mma.quad_launches,
-            "sponge_mma": sponge_mma.launches, "unpack": unpack.launches}
+    n = _launches
+    return {"jive": n["jive_kernel"] + n["jive_pasta_kernel"], "jive_pasta": n["jive_pasta_kernel"],
+            "jive_mma": n["jive_mma_kernel"], "permutation": n["permute_kernel"] + n["permute_group_kernel"],
+            "four_lane": n["permute_group_kernel"], "sponge": n["sponge_kernel"],
+            "permutation_mma": n["permute_mma_kernel"], "permutation_mma_thread": n["permute_mma_thread_kernel"],
+            "sponge_mma": n["sponge_mma_kernel"], "unpack": n["unpack_kernel"]}
 
 
 # --------------------------------------------------------------------------

@@ -15,8 +15,7 @@ ported to ``csrc/microbench.cu``:
     and at one that fills the card.
 
 Each wrapper launches its kernel for a tensor on the card and runs its
-plain version for a tensor on the CPU, and counts its launches.  Times come
-from CUDA events.  Run on the card:
+plain version for a tensor on the CPU.  Times come from CUDA events.  Run on the card:
 
     python -m anemoi_tpu_torch.microbench
 """
@@ -25,15 +24,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-import re
 import subprocess
 from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import _build, sass
+from . import _build
 from .ff import cuda_backend
 from .ff import limb_ops as lo
 from .fields.params import FieldParams, get_field, get_instance
@@ -128,11 +125,7 @@ def sqr_chain(fp: FieldParams, x: torch.Tensor, n_iter: int) -> torch.Tensor:
         return out
     consts = cuda_backend.consts_words(get_instance(fp.name, "anemoi_2_1"))
     cuda_backend._launch(library().cdll, "anemoi_sqr_chain", x, out, n_iter, fp.kernel_words, consts.ctypes.data)
-    sqr_chain.launches += 1
     return out
-
-
-sqr_chain.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -161,11 +154,7 @@ def mad_loop(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     if x.numel() == 0:
         return out
     cuda_backend._launch(library().cdll, "anemoi_mad_loop", x.view(1, -1), out.view(1, -1), n_iter)
-    mad_loop.launches += 1
     return out
-
-
-mad_loop.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -237,14 +226,6 @@ def measure_mad(shape: tuple, n1: int, n2: int, reps: int, device, *, sms: int, 
 def fill_shape(sms: int) -> tuple:
     """One element per thread the card can hold: SMs x 2,048."""
     return (sms * 2048,)
-
-
-def mad_sass() -> list[str]:
-    """The SASS of mad_loop_kernel (``cuobjdump -sass`` on the built
-    library): its instruction lines."""
-    kernels = sass.functions(sass.disassemble(library().path))
-    lines = next(v for k, v in kernels.items() if "mad_loop_kernel" in k)
-    return [re.sub(r"\s+", " ", line.split(";")[0]).strip() + ";" for line in lines]
 
 
 def main() -> None:

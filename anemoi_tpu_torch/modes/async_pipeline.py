@@ -1,17 +1,17 @@
-"""Streaming byte hashing with the host's packing overlapped with the card.
+"""Streaming byte hashing with the host's work overlapped with the card.
 
-Counterpart of ``anemoi_tpu/modes/async_pipeline.py``.  Each batch runs
-three stages:
+Counterpart of ``anemoi_tpu/modes/async_pipeline.py``.  Each batch goes
+through ``hash_bytes_batch``, the byte route of every byte call:
 
-    1. host:     chunk, pad and pack the messages into 13-bit limbs (the
-                 native packer, ``pack_messages``) into a pinned buffer;
+    1. host:     the messages' bytes joined into one page-locked buffer
+                 (``gather_messages``);
     2. upload:   a ``non_blocking`` copy of that buffer to the card;
-    3. card:     Montgomery conversion, the sponge kernel and, with
-                 ``export``, the conversion back to canonical limbs; then a
-                 ``non_blocking`` copy of the digests into a pinned buffer
-                 and an event.
+    3. card:     the unpack kernel (bytes to Montgomery limbs), the sponge
+                 kernel and, with ``export``, the conversion back to
+                 canonical limbs; then a ``non_blocking`` copy of the
+                 digests into a pinned buffer and an event.
 
-Stages 2 and 3 run on one stream of their own, so the host packs batch
+Stages 2 and 3 run on one stream of their own, so the host gathers batch
 k+1 while the card hashes batch k.  A result is fetched one batch behind
 the dispatch front, and only after its event has completed.
 
@@ -33,15 +33,15 @@ import torch
 
 from ..ff import cuda_backend
 from ..fields.params import InstanceParams
-from .batched import digest_export_fn, sponge_hash_batch_fn
-from .bytes_pipeline import mont_messages, pack_messages
+from .batched import digest_export_fn
+from .bytes_pipeline import hash_bytes_batch
 
 
 class AsyncByteHasher:
     """Depth-1 pipelined hasher over batches of equal-length messages on
     ``device`` (None: the card).
 
-    ``feed(batch)`` packs and dispatches the batch and yields the results
+    ``feed(batch)`` gathers and dispatches the batch and yields the results
     of the batches it has overtaken; ``drain()`` yields the rest.  Results
     are int32 [DIGEST, L, B] numpy arrays: canonical limbs (ready for
     ``digests_to_bytes``) with ``export``, Montgomery limbs without.  Every
@@ -54,29 +54,24 @@ class AsyncByteHasher:
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._inflight: list = []
 
-    def _hash(self, elems: torch.Tensor) -> torch.Tensor:
-        """Canonical int32 [E, L, B] limbs on the device -> digests there."""
-        E = elems.shape[0]
-        out = sponge_hash_batch_fn(self.inst, E, device=self.device)(mont_messages(self.inst, elems, self.device))
+    def _digests(self, messages: list) -> torch.Tensor:
+        """One batch's digests on the device, not waited for."""
+        out = hash_bytes_batch(self.inst, messages, device=self.device)
         return out if self._export is None else self._export(out)
 
     def _dispatch(self, messages: list):
-        elems = pack_messages(self.inst, messages)  # host C++: canonical (E, L, B)
         if self._stream is None:
-            return self._hash(torch.from_numpy(elems)).numpy(), None, None
-        staged = torch.empty(elems.shape, dtype=torch.int32, pin_memory=True)
-        staged.numpy()[...] = elems
+            return self._digests(messages).numpy(), None
         with torch.cuda.stream(self._stream):
-            out = self._hash(staged.to(self.device, non_blocking=True))
+            out = self._digests(messages)
             fetched = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
             fetched.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
-        # `staged` stays referenced until the event: the upload reads it
-        return fetched, done, staged
+        return fetched, done
 
     def _fetch(self) -> np.ndarray:
-        fetched, done, _staged = self._inflight.pop(0)
+        fetched, done = self._inflight.pop(0)
         if done is None:
             return fetched
         done.synchronize()

@@ -18,10 +18,8 @@ counts and buckets over every message), then for each bucket
 ``anemoi.bytes.upload`` (the copy of the buffer and the spans to the
 device).
 
-``pack_messages`` and ``mont_messages`` are the older host route (the
-native packer, a stack into [E, L, B], ``limb_ops.to_mont``), which
-``AsyncByteHasher`` runs; it records ``pack``, ``layout`` and ``upload``
-too.
+``pack_messages`` is the JAX package's public packer (the native packer, a
+stack into canonical [E, L, B]); no hashing path runs it.
 """
 
 from __future__ import annotations
@@ -30,7 +28,6 @@ import numpy as np
 import torch
 
 from ..ff import cuda_backend, native
-from ..ff import limb_ops as lo
 from ..fields.params import InstanceParams
 from ..utils.profiling import span
 from .batched import sponge_hash_batch_fn
@@ -40,10 +37,8 @@ def pack_messages(inst: InstanceParams, messages: list) -> np.ndarray:
     """Equal-length byte messages -> canonical int32 [E, L, B] limbs."""
     if len({len(m) for m in messages}) != 1:
         raise ValueError("the messages of a batch must share a byte length")
-    with span("anemoi.bytes.pack"):
-        packed = [native.pack_bytes(m, inst.field) for m in messages]  # (E, L) each
-    with span("anemoi.bytes.layout"):
-        return np.ascontiguousarray(np.stack(packed).transpose(1, 2, 0))
+    packed = [native.pack_bytes(m, inst.field) for m in messages]  # (E, L) each
+    return np.ascontiguousarray(np.stack(packed).transpose(1, 2, 0))
 
 
 def hash_bytes_batch(inst: InstanceParams, messages: list, *, backend: str = "jit", device=None) -> torch.Tensor:
@@ -59,18 +54,6 @@ def hash_bytes_batch(inst: InstanceParams, messages: list, *, backend: str = "ji
             raise ValueError("the messages of a batch must share a byte length")
         (E, idxs), = buckets.items()
         return _hash_bucket(inst, messages, lengths, E, idxs, device)
-
-
-def mont_messages(inst: InstanceParams, elems, device) -> torch.Tensor:
-    """Canonical int32 [E, L, B] limbs (an array on the host, or a tensor)
-    -> contiguous int32 [E, L, B] Montgomery limbs on ``device``."""
-    E, L, B = elems.shape
-    with span("anemoi.bytes.upload"):
-        folded = torch.as_tensor(elems).to(device)
-    # fold E into the batch axis for one domain conversion; reusing the name
-    # frees the uploaded copy once it is folded
-    folded = folded.permute(1, 0, 2).reshape(L, E * B)
-    return lo.to_mont(folded, lo.field_consts(inst.field)).reshape(L, E, B).permute(1, 0, 2).contiguous()
 
 
 def bucket_messages(inst: InstanceParams, messages: list) -> tuple[np.ndarray, dict]:

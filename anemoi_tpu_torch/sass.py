@@ -162,13 +162,6 @@ def product_loop(kernel: str, lines: list[str]) -> tuple[list[str], int]:
     return innermost_loop(lines, "IMMA", least=2 * max(per, 1)), 2
 
 
-def kernel_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """{kernel: opcode_counts} over a built library, and those of its
-    innermost loop under "loop"."""
-    return {kernel_name(name): {**opcode_counts(lines), "loop": opcode_counts(innermost_loop(lines))}
-            for name, lines in functions(disassemble(lib)).items()}
-
-
 def compare(name: str, this: tuple[dict, dict], other: tuple[dict, dict]) -> str:
     """One kernel of two builds, each (SASS, PTX) functions by mangled name:
     "same" (PTX alike but for the numbers of its labels and virtual

@@ -3,8 +3,9 @@
     python3 -m anemoi_tpu_torch.tools.verify_cuda [--fields vesta,bls12_381 | all] [--device cuda|cpu]
 
 Counterpart of ``tools/verify_tpu.py``: one PASS or FAIL line a check, then
-the kernel launches it made (a JSON line) and "ALL PASS" (exit 0) or
-"FAILURES" (exit 1).  For each field:
+the kernel launches it made (a JSON line of ``cuda_backend.launch_counts()``'s
+keys, with ``_w12`` after them for the 12-word fields) and "ALL PASS" (exit 0)
+or "FAILURES" (exit 1).  For each field:
 
   * for anemoi_2_1 and anemoi_4_3: the permutation at 128 states (the
     four-lane kernel) and at 16,384 (above ``permute_group_max``: the
@@ -171,16 +172,6 @@ class FieldCheck:
         return self.root() and ok
 
 
-def kernel_launches(words: int, delta: dict) -> dict:
-    """Launch counts under the names of ``chip_smoke.py``'s kernels line."""
-    w = "_w12" if words == 12 else ""
-    return {f"jive{w}": delta["jive"], f"jive_pasta{w}": delta["jive_pasta"], f"jive_mma{w}": delta["jive_mma"],
-            f"permutation{w}": delta["four_lane"],
-            f"permutation_thread{w}": delta["permutation"] - delta["four_lane"], f"sponge{w}": delta["sponge"],
-            f"permutation_mma{w}": delta["permutation_mma"], f"permutation_mma_thread{w}": delta["permutation_mma_thread"],
-            f"sponge_mma{w}": delta["sponge_mma"], f"unpack{w}": delta["unpack"]}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m anemoi_tpu_torch.tools.verify_cuda",
                                  description=__doc__.split("\n\n")[0])
@@ -211,9 +202,9 @@ def main(argv=None) -> int:
         before = launch_counts()
         ok &= FieldCheck(field, device, mul_impl=args.mul_impl).run()
         after = launch_counts()
-        for k, v in kernel_launches(get_instance(field, "anemoi_2_1").field.kernel_words,
-                                    {k: after[k] - before[k] for k in after}).items():
-            launches[k] = launches.get(k, 0) + v
+        w = "_w12" if get_instance(field, "anemoi_2_1").field.kernel_words == 12 else ""
+        for k in after:
+            launches[k + w] = launches.get(k + w, 0) + after[k] - before[k]
     print("launches: " + json.dumps(launches), flush=True)
     print(f"done in {time.time() - t0:.0f}s: {'ALL PASS' if ok else 'FAILURES'}", flush=True)
     return 0 if ok else 1

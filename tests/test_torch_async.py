@@ -5,10 +5,13 @@ Tolerance: exact.  The inputs are tests/test_async_pipeline.py's (three
 batches of three 70-byte Vesta 2_1 messages, the JAX jit sponge of the
 same shape); the port runs its plain path (``device="cpu"``).  Results
 come one batch behind the dispatch front, as canonical [DIGEST, L, B]
-arrays, and in Montgomery form without ``export``.
+arrays, and in Montgomery form without ``export``.  AsyncByteHasher takes
+the byte route of ``hash_bytes_mixed``, and gives its digests at 8 and 12
+words (the sponge's plain version replaced by the native oracle there).
 """
 
 import numpy as np
+import pytest
 import torch
 
 from anemoi_tpu.ff import golden as jgolden
@@ -17,6 +20,9 @@ from anemoi_tpu.modes.async_pipeline import AsyncByteHasher as JAsyncByteHasher
 from anemoi_tpu_torch.fields.params import get_instance
 from anemoi_tpu_torch.modes.async_pipeline import AsyncByteHasher
 from anemoi_tpu_torch.modes.batched import digest_export_fn, digests_to_bytes
+from anemoi_tpu_torch.modes.bytes_pipeline import hash_bytes_mixed
+
+from .test_torch_bench import oracle_plain  # noqa: F401  (a fixture)
 
 
 def _batches():
@@ -62,3 +68,18 @@ def test_async_pipeline_without_export():
         assert out.shape == (1, 20, 2)
         assert digests_to_bytes(inst, export(torch.from_numpy(out))) == [
             jgolden.digest_to_bytes(ref, jgolden.hash_bytes(ref, m)) for m in batch]
+
+
+@pytest.mark.parametrize("field,iname", [("vesta", "anemoi_2_1"), ("bls12_381", "anemoi_4_3")])  # 8 and 12 words
+def test_async_pipeline_matches_hash_bytes_mixed(field, iname, oracle_plain):  # noqa: F811
+    """Two batches whose messages end mid-chunk (3 and 7 whole elements and
+    a part of one), in Montgomery form, against ``hash_bytes_mixed`` over
+    the same messages."""
+    inst = get_instance(field, iname)
+    c = inst.field.byte_chunk
+    rng = np.random.default_rng(10)
+    batches = [[rng.bytes(n * c + c // 2) for _ in range(5)] for n in (3, 7)]
+    got = _run(AsyncByteHasher(inst, export=False, device="cpu"), batches)
+    assert len(got) == len(batches)
+    for out, batch in zip(got, batches):
+        np.testing.assert_array_equal(out, hash_bytes_mixed(inst, batch, device="cpu"))

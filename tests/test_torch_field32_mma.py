@@ -204,8 +204,8 @@ def test_kernels_match_plain_on_card():
         W, L = inst.width, inst.field.n_limbs
         x = torch.from_numpy(random_canonical(inst.field, (W, 131), rng).transpose(1, 0, 2).copy())
         x = x.reshape(W * L, 131).cuda()
-        before = cuda_backend.jive_mma.launches
+        before = cuda_backend.launch_counts()["jive_mma"]
         out = cuda_backend.jive(inst, k, x, "mxuf").cpu().numpy()
-        assert cuda_backend.jive_mma.launches == before + 1
+        assert cuda_backend.launch_counts()["jive_mma"] == before + 1
         np.testing.assert_array_equal(out, cuda_backend.jive(inst, k, x).cpu().numpy())
         np.testing.assert_array_equal(out, cuda_backend.jive_plain(inst, k, x).cpu().numpy())

@@ -244,7 +244,7 @@ def test_verifier_passes_mul_impl_to_permutation_and_sponge(mul_impl, oracle_pla
     def recording(name):
         real = getattr(cuda_backend, name)
 
-        @functools.wraps(real)  # with its launch counters, which launch_counts reads
+        @functools.wraps(real)
         def call(*args):
             calls.append((name, args[-1]))
             return real(*args)

@@ -15,7 +15,8 @@ import torch
 from anemoi_tpu_torch.ff import cuda_backend
 from anemoi_tpu_torch.fields.params import get_instance
 from anemoi_tpu_torch.merkle.tree import MerkleTree
-from anemoi_tpu_torch.modes.bytes_pipeline import hash_bytes_mixed, pack_messages
+from anemoi_tpu_torch.modes.async_pipeline import AsyncByteHasher
+from anemoi_tpu_torch.modes.bytes_pipeline import hash_bytes_mixed
 from anemoi_tpu_torch.utils import profiling
 from tests.test_torch_bench import ORACLE
 
@@ -83,11 +84,17 @@ def test_mixed_bytes_spans_a_layout_and_upload_a_bucket(oracle):
     assert all(_inside(s, spans[0]) for s in spans[1:])
 
 
-def test_pack_messages_spans_pack_then_layout():
-    msgs = [bytes(np.random.default_rng(3).bytes(100)) for _ in range(3)]
-    spans = _spans([torch.profiler.ProfilerActivity.CPU], lambda: pack_messages(INST, msgs))
-    assert [s[0] for s in spans] == ["anemoi.bytes.pack", "anemoi.bytes.layout"]
-    assert spans[0][2] <= spans[1][1]
+def test_async_hasher_spans_a_byte_call_a_batch(oracle):
+    """AsyncByteHasher takes the byte route of every byte call: a batch is
+    one ``anemoi.bytes.hash`` span holding ``pack``, ``layout`` and
+    ``upload``, one after another."""
+    msgs = [np.random.default_rng(3).bytes(100) for _ in range(3)]
+    pipe = AsyncByteHasher(INST, device="cpu")
+    spans = _spans([torch.profiler.ProfilerActivity.CPU], lambda: (list(pipe.feed(msgs)), list(pipe.drain())))
+    assert [s[0] for s in spans] == ["anemoi.bytes.hash", "anemoi.bytes.pack", "anemoi.bytes.layout",
+                                     "anemoi.bytes.upload"]
+    assert all(_inside(s, spans[0]) for s in spans[1:])
+    assert all(a[2] <= b[1] for a, b in zip(spans[1:], spans[2:]))
 
 
 @pytest.mark.cuda

@@ -200,9 +200,9 @@ def test_cuda_tensors_go_to_the_kernels_or_raise(monkeypatch):
 def test_permutation_counts_the_kernel_it_launches(monkeypatch):
     """A CUDA tensor goes to the library's one launcher: ``permutation`` lets
     it pick the kernel by N, ``permutation_with`` names the kernel.
-    ``permutation`` counts one launch a call, and in ``group_launches``
-    those that the launcher reports it sent to the four-lane kernel;
-    ``permutation_with`` counts nothing."""
+    ``permutation`` counts one launch a call in ``launch_counts()``, and
+    in its "four_lane" those that the launcher reports it sent to the
+    four-lane kernel; ``permutation_with`` counts nothing."""
     launched = []
 
     def launcher(lib, name, x, out, width, kernel, consts, picked):
@@ -212,8 +212,9 @@ def test_permutation_counts_the_kernel_it_launches(monkeypatch):
 
     monkeypatch.setattr(cuda_backend, "sponge_library", lambda words: type("Built", (), {"cdll": None})())
     monkeypatch.setattr(cuda_backend, "_launch", launcher)
-    monkeypatch.setattr(cuda_backend.permutation, "launches", 0)
-    monkeypatch.setattr(cuda_backend.permutation, "group_launches", 0)
+    # the fake launches count in a table of their own, not in the process's
+    monkeypatch.setattr(cuda_backend, "_launches", dict.fromkeys(cuda_backend._launches, 0))
+    before = cuda_backend.launch_counts()
     inst = get_instance("vesta", "anemoi_4_3")
     fake = lambda n: torch.zeros(80, n, dtype=torch.int32).as_subclass(_FakeCudaTensor)
     for n in (1, 3, 4, 0):
@@ -222,7 +223,8 @@ def test_permutation_counts_the_kernel_it_launches(monkeypatch):
         cuda_backend.permutation_with(inst, fake(5), group)
     assert launched == [("anemoi_permute", 1, -1), ("anemoi_permute", 3, -1), ("anemoi_permute", 4, -1),
                         ("anemoi_permute", 5, 1), ("anemoi_permute", 5, 0)]
-    assert (cuda_backend.permutation.launches, cuda_backend.permutation.group_launches) == (3, 2)
+    after = cuda_backend.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "permutation": 3, "four_lane": 2}
 
 
 @pytest.mark.cuda

@@ -234,9 +234,8 @@ def test_launcher_picks_the_form_by_the_crossover(lib):
 
 def test_wrapper_counts_the_form_the_launcher_picks(lib, monkeypatch):
     """``permutation`` with an "mxu" name lets the launcher pick the form
-    (kernel -1) and counts one ``permutation_mma`` launch a call, and in
-    ``quad_launches`` those the launcher reports it sent to the quad form,
-    which ``launch_counts`` reports by form;
+    (kernel -1) and counts one launch a call in ``launch_counts()``, under
+    the form the launcher reports it picked;
     ``permutation_mma_with`` names the form and counts nothing;
     ``permute_mma_group_max`` reads the library's crossover."""
     launched = []
@@ -250,8 +249,9 @@ def test_wrapper_counts_the_form_the_launcher_picks(lib, monkeypatch):
     monkeypatch.setattr(cuda_backend, "sponge_mma_library", lambda words: type("Built", (), {"cdll": cdll})())
     monkeypatch.setattr(cuda_backend, "fragments", lambda field, device: torch.zeros(1, dtype=torch.int32))
     monkeypatch.setattr(cuda_backend, "_launch", launcher)
-    monkeypatch.setattr(cuda_backend.permutation_mma, "launches", 0)
-    monkeypatch.setattr(cuda_backend.permutation_mma, "quad_launches", 0)
+    # the fake launches count in a table of their own, not in the process's
+    monkeypatch.setattr(cuda_backend, "_launches", dict.fromkeys(cuda_backend._launches, 0))
+    before = cuda_backend.launch_counts()
     inst = get_instance("vesta", "anemoi_4_3")
     fake = lambda n: torch.zeros(80, n, dtype=torch.int32).as_subclass(_FakeCudaTensor)
     assert cuda_backend.permute_mma_group_max(8) == top
@@ -262,9 +262,9 @@ def test_wrapper_counts_the_form_the_launcher_picks(lib, monkeypatch):
     assert launched == [("anemoi_permute_mma", 1, -1), ("anemoi_permute_mma", top, -1),
                         ("anemoi_permute_mma", top + 1, -1), ("anemoi_permute_mma", 5, 1),
                         ("anemoi_permute_mma", 5, 0)]
-    assert (cuda_backend.permutation_mma.launches, cuda_backend.permutation_mma.quad_launches) == (3, 2)
-    counts = cuda_backend.launch_counts()
-    assert (counts["permutation_mma"], counts["permutation_mma_thread"]) == (2, 1)
+    after = cuda_backend.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "permutation_mma": 2,
+                                                        "permutation_mma_thread": 1}
 
 
 def _sponge_cases():
@@ -321,9 +321,10 @@ def test_kernels_match_plain_on_card():
         W, L = inst.width, inst.field.n_limbs
         x = torch.from_numpy(random_canonical(inst.field, (W, 131), rng).transpose(1, 0, 2).copy())
         x = x.reshape(W * L, 131).cuda()
-        before = cuda_backend.permutation_mma.launches
+        before = cuda_backend.launch_counts()
         out = cuda_backend.permutation(inst, x, "mxuf").cpu().numpy()
-        assert cuda_backend.permutation_mma.launches == before + 1
+        after = cuda_backend.launch_counts()
+        assert sum(after[k] - before[k] for k in ("permutation_mma", "permutation_mma_thread")) == 1
         np.testing.assert_array_equal(out, cuda_backend.permutation(inst, x).cpu().numpy())
         np.testing.assert_array_equal(out, cuda_backend.permutation_plain(inst, x).cpu().numpy())
         for quad in (True, False):
@@ -331,8 +332,8 @@ def test_kernels_match_plain_on_card():
         E = inst.rate + 1
         m = torch.from_numpy(random_canonical(inst.field, (E, 131), rng).transpose(1, 0, 2).copy())
         m = m.reshape(E * L, 131).cuda()
-        before = cuda_backend.sponge_mma.launches
+        before = cuda_backend.launch_counts()["sponge_mma"]
         out = cuda_backend.sponge(inst, E, m, "mxuf").cpu().numpy()
-        assert cuda_backend.sponge_mma.launches == before + 1
+        assert cuda_backend.launch_counts()["sponge_mma"] == before + 1
         np.testing.assert_array_equal(out, cuda_backend.sponge(inst, E, m).cpu().numpy())
         np.testing.assert_array_equal(out, cuda_backend.sponge_plain(inst, E, m).cpu().numpy())
