@@ -138,8 +138,9 @@ struct ThreadArith {
 
 // A group of four lanes holds each element word-sliced (field32_group.cuh,
 // lane policy P): the sponge and four-lane permutation kernels.  The
-// lane's slices of p, beta and delta stay in registers; a round constant
-// is sliced where it is added.
+// lane's slices of p, beta and delta stay in registers, with the products'
+// Montgomery constant of a slice's width (g_lift_n0); a round constant is
+// sliced where it is added.
 // Squaring is the group product of a value by itself.  Columns run in
 // lockstep, so the Flystels' products come N at a time; mds's products by
 // beta (60 of a Vesta 4_3 permutation's 10,728) come one at a time.
@@ -149,8 +150,9 @@ struct GroupArith {
     using Elem = uint32_t[P::H][S];
     static constexpr bool LOCKSTEP = true, WINDOW = false;
     const AnemoiConsts<NW>& c;
-    uint32_t p[P::H][S], beta[P::H][S], delta_[P::H][S];
+    uint32_t p[P::H][S], beta[P::H][S], delta_[P::H][S], n0[S];
     G32_MEMBER GroupArith(const AnemoiConsts<NW>& consts) : c(consts) {
+        g_lift_n0<NW>(n0, c.p, c.n0);
         g_slice<NW, P>(p, c.p);
         g_slice<NW, P>(beta, c.beta);
         g_slice<NW, P>(delta_, c.delta);
@@ -162,7 +164,7 @@ struct GroupArith {
         g_add<NW, P>(r, a, s, p);
     }
     G32_MEMBER void sub(Elem r, const Elem a, const Elem b) const { g_sub<NW, P>(r, a, b, p); }
-    G32_MEMBER void mul_g(Elem r, const Elem a) const { g_mont_mul<NW, P>(r, a, beta, p, c.n0); }
+    G32_MEMBER void mul_g(Elem r, const Elem a) const { g_mont_mul<NW, P>(r, a, beta, p, n0); }
     G32_MEMBER void copy(Elem r, const Elem a) const { g_copy<NW, P>(r, a); }
     // r = pick ? a : b, word by word (pick is the same in every lane)
     G32_MEMBER void select(Elem r, bool pick, const Elem a, const Elem b) const {
@@ -172,15 +174,15 @@ struct GroupArith {
             for (int j = 0; j < S; ++j) r[h][j] = pick ? a[h][j] : b[h][j];
     }
     template <int N>
-    G32_MEMBER void sqr_n(Elem* r, const Elem* a) const { g_mont_mul_n<NW, P, N>(r, a, a, p, c.n0); }
+    G32_MEMBER void sqr_n(Elem* r, const Elem* a) const { g_mont_mul_n<NW, P, N>(r, a, a, p, n0); }
     template <int N>
-    G32_MEMBER void mul_n(Elem* r, const Elem* a, const Elem* b) const { g_mont_mul_n<NW, P, N>(r, a, b, p, c.n0); }
+    G32_MEMBER void mul_n(Elem* r, const Elem* a, const Elem* b) const { g_mont_mul_n<NW, P, N>(r, a, b, p, n0); }
     template <int N>
     G32_MEMBER void mul_g_n(Elem* r, const Elem* a) const {
         Elem g[N];
 #pragma unroll
         for (int i = 0; i < N; ++i) g_copy<NW, P>(g[i], beta);
-        g_mont_mul_n<NW, P, N>(r, a, g, p, c.n0);
+        g_mont_mul_n<NW, P, N>(r, a, g, p, n0);
     }
     G32_MEMBER const uint32_t* C(int k) const { return c.C[k]; }
     G32_MEMBER const uint32_t* D(int k) const { return c.D[k]; }

@@ -24,7 +24,8 @@
 // out and whether it would pass one on (its words all ones, or all zeros
 // for a borrow), two votes, and g_lookahead turns the two 4-bit masks into
 // the carry into every lane at once, as a carry-lookahead adder would.  The
-// Montgomery product (CIOS) defers its carries: see g_mont_mul_n.
+// Montgomery product (CIOS) steps a lane's whole slice at a time and defers
+// its carries: see g_mont_mul_n.
 #pragma once
 
 #include <stdint.h>
@@ -284,27 +285,94 @@ F32_FN void g_sub(uint32_t r[][NW / 4], const uint32_t a[][NW / 4], const uint32
     g_copy<NW, P>(r, d);
 }
 
-// r[k] = a[k] * b[k] / 2^(32 NW) mod p (CIOS over the NW words of a[k]) for
-// N independent products side by side, each a[k] below 2^(32 NW) and b[k]
-// below p, or the other way round.  r may alias a or b.
+// r = a * b mod 2^(32 S), the low half of the product; r may alias a or b.
+template <int S>
+F32_FN void g_mul_low(uint32_t r[S], const uint32_t a[S], const uint32_t b[S]) {
+    uint32_t t[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) t[j] = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+        uint64_t c = 0;
+#pragma unroll
+        for (int j = 0; i + j < S; ++j) {
+            const uint64_t s = (uint64_t)a[i] * b[j] + t[i + j] + c;
+            t[i + j] = (uint32_t)s;
+            c = s >> 32;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j) r[j] = t[j];
+}
+
+// r = -p^-1 mod 2^(32 S), S = NW / 4: the Montgomery constant of one
+// lane's slice, lifted from n0 = -p^-1 mod 2^32 (the constants' word) by
+// Newton's step y <- y (2 + p y), which doubles the low bits that are
+// right: once for 64 bits, twice for 96.
+template <int NW>
+F32_FN void g_lift_n0(uint32_t r[NW / 4], const uint32_t p[NW], uint32_t n0) {
+    constexpr int S = NW / 4;
+    r[0] = n0;
+#pragma unroll
+    for (int j = 1; j < S; ++j) r[j] = 0;
+#pragma unroll
+    for (int bits = 32; bits < 32 * S; bits *= 2) {
+        uint32_t u[S];
+        g_mul_low<S>(u, p, r);
+        uint64_t c = 2;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            c += u[j];
+            u[j] = (uint32_t)c;
+            c >>= 32;
+        }
+        g_mul_low<S>(r, r, u);
+    }
+}
+
+// r[k] = a[k] * b[k] / 2^(32 NW) mod p for N independent products side by
+// side, each a[k] below 2^(32 NW) and b[k] below p, or the other way round;
+// n0 is g_lift_n0's.  r may alias a or b.
 //
-// Step i: a_i is broadcast from lane i / S, and each lane adds a_i * b and
-// then m * p over its own S words, m = t_0 * n0 broadcast from lane 0 (whose
-// low word is the sum's, exact).  The carries out of a lane's top word are
-// not passed up: they wait in the lane's `hi` (weight 2^(32 S) above the
-// lane's low word).  The shift by one word then brings in the next lane's
-// low word as the lane's new top word, and `hi`, now at that word's weight,
-// is added into it there, inside the lane; what is left of hi stays below 4.
-// After NW steps one shift up of every lane's hi and one vote pair settle
-// the sum, and g_reduce_once_n takes p off if it is at least p.  The N
-// products run each phase of a step in turn, so one product's shuffles
-// are in flight while the others multiply.
+// Montgomery's CIOS with a lane's whole slice as the digit: radix
+// D = 2^(32 S), four steps.  Step i: a's digit is lane i's S words,
+// broadcast to every lane (a alone decides the 4 S broadcasts, so they are
+// all issued before the first step).  Each lane adds digit * its slice of
+// b to its S words t, a 2S-word sum u; m = u_low * n0 mod D, exact in lane
+// 0, is broadcast from there (S independent shuffles), and each lane adds
+// m * its slice of p to u, which makes lane 0's low S words 0.  The shift
+// by one lane then brings lane l + 1's low S words into lane l (S
+// independent shuffles; lane 3 takes lane 0's zeros), and lane l adds its
+// own high words there, now at that weight, and its `hi`: the carry out of
+// the last such add (below 4, at the weight of lane l + 1's first word),
+// which waits there for the next step's.  So a product's chain holds two
+// rounds of shuffles a step, 8 in all at 8 words and at 12, where steps of
+// one word hold one a step, NW in all, and more dependent steps: at one
+// warp a scheduler, as the sponge kernel runs, nothing hides that chain, and
+// the slice steps' is the shorter though they issue more instructions (two
+// products side by side overlap their chains, and there the word steps'
+// fewer instructions were the faster: PERF.md).  After the 4 steps one
+// shift up of every lane's hi and one vote pair settle the sum, and
+// g_reduce_once_n takes p off if it is at least p.
+// R stays 2^(32 NW), so the result is the word-by-word CIOS's.  The N
+// products run each phase of a step in turn, so one product's shuffles are
+// in flight while the others multiply.
 template <int NW, class P, int N>
 F32_FN void g_mont_mul_n(uint32_t (*r)[P::H][NW / 4], const uint32_t (*a)[P::H][NW / 4],
-                         const uint32_t (*b)[P::H][NW / 4], const uint32_t p[][NW / 4], uint32_t n0) {
+                         const uint32_t (*b)[P::H][NW / 4], const uint32_t p[][NW / 4], const uint32_t n0[NW / 4]) {
     constexpr int S = NW / 4, H = P::H;
-    uint32_t t[N][H][S], v[H], ai[N][H], m[N][H], nx[N][H];
-    uint64_t hi[N][H];
+    // dig[k][i][j]: word j of a[k]'s digit i, in every lane
+    uint32_t dig[N][G32_LANES][S][H], t[N][H][S], hi[N][H], u[N][H][2 * S + 1], m[N][S][H], nx[N][S][H], v[S][H];
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+#pragma unroll
+        for (int i = 0; i < G32_LANES; ++i)
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+#pragma unroll
+                for (int h = 0; h < H; ++h) v[j][h] = a[k][h][j];
+                P::bcast(dig[k][i][j], v[j], i);
+            }
 #pragma unroll
     for (int k = 0; k < N; ++k)
 #pragma unroll
@@ -314,66 +382,85 @@ F32_FN void g_mont_mul_n(uint32_t (*r)[P::H][NW / 4], const uint32_t (*a)[P::H][
             for (int j = 0; j < S; ++j) t[k][h][j] = 0;
         }
 #pragma unroll
-    for (int i = 0; i < NW; ++i) {
+    for (int i = 0; i < G32_LANES; ++i) {
 #pragma unroll
         for (int k = 0; k < N; ++k) {
 #pragma unroll
-            for (int h = 0; h < H; ++h) v[h] = a[k][h][i % S];
-            P::bcast(ai[k], v, i / S);
+            for (int h = 0; h < H; ++h) {
+                // u = t + digit * b < D^2: each row's last carry lands in a word no row has written
+#pragma unroll
+                for (int j = 0; j < S; ++j) u[k][h][j] = t[k][h][j];
+#pragma unroll
+                for (int x = 0; x < S; ++x) {
+                    uint64_t c = 0;
+#pragma unroll
+                    for (int y = 0; y < S; ++y) {
+                        const uint64_t s = (uint64_t)dig[k][i][x][h] * b[k][h][y] + u[k][h][x + y] + c;
+                        u[k][h][x + y] = (uint32_t)s;
+                        c = s >> 32;
+                    }
+                    u[k][h][x + S] = (uint32_t)c;
+                }
+                u[k][h][2 * S] = 0;
+                uint32_t w[S];
+                g_mul_low<S>(w, u[k][h], n0);
+#pragma unroll
+                for (int j = 0; j < S; ++j) v[j][h] = w[j];
+            }
+#pragma unroll
+            for (int j = 0; j < S; ++j) P::bcast(m[k][j], v[j], 0);
         }
 #pragma unroll
         for (int k = 0; k < N; ++k) {
 #pragma unroll
             for (int h = 0; h < H; ++h) {
-                uint64_t c = 0;
+                // u += m * p < 2 D^2: the carry past word 2S - 1 is one bit, in word 2S
+#pragma unroll
+                for (int x = 0; x < S; ++x) {
+                    uint64_t c = 0;
+#pragma unroll
+                    for (int y = 0; y < S; ++y) {
+                        const uint64_t s = (uint64_t)m[k][x][h] * p[h][y] + u[k][h][x + y] + c;
+                        u[k][h][x + y] = (uint32_t)s;
+                        c = s >> 32;
+                    }
+#pragma unroll
+                    for (int z = x + S; z <= 2 * S; ++z) {
+                        const uint64_t s = (uint64_t)u[k][h][z] + c;
+                        u[k][h][z] = (uint32_t)s;
+                        c = s >> 32;
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < S; ++j) v[j][h] = u[k][h][j];
+            }
+            // lane 3 takes lane 0's low words, which m * p has just made 0
+#pragma unroll
+            for (int j = 0; j < S; ++j) P::next(nx[k][j], v[j]);
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+                uint64_t c = hi[k][h];
 #pragma unroll
                 for (int j = 0; j < S; ++j) {
-                    const uint64_t s = (uint64_t)ai[k][h] * b[k][h][j] + t[k][h][j] + c;
+                    const uint64_t s = (uint64_t)nx[k][j][h] + u[k][h][S + j] + c;
                     t[k][h][j] = (uint32_t)s;
                     c = s >> 32;
                 }
-                hi[k][h] += c;
-                v[h] = t[k][h][0] * n0;
-            }
-            P::bcast(m[k], v, 0);
-        }
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-#pragma unroll
-            for (int h = 0; h < H; ++h) {
-                uint64_t c = 0;
-#pragma unroll
-                for (int j = 0; j < S; ++j) {
-                    const uint64_t s = (uint64_t)m[k][h] * p[h][j] + t[k][h][j] + c;
-                    t[k][h][j] = (uint32_t)s;
-                    c = s >> 32;
-                }
-                hi[k][h] += c;
-                v[h] = t[k][h][0];
-            }
-            // lane 3 takes lane 0's low word, which m * p has just made 0
-            P::next(nx[k], v);
-#pragma unroll
-            for (int h = 0; h < H; ++h) {
-#pragma unroll
-                for (int j = 0; j < S - 1; ++j) t[k][h][j] = t[k][h][j + 1];
-                const uint64_t s = (uint64_t)nx[k][h] + hi[k][h];
-                t[k][h][S - 1] = (uint32_t)s;
-                hi[k][h] = s >> 32;
+                hi[k][h] = (uint32_t)c + u[k][h][2 * S];
             }
         }
     }
     // settle: lane l's hi joins lane l + 1's words; lane 3's is the top
-    uint32_t top[N][H], cin[N];
+    uint32_t top[N][H], cin[N], up[H];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
         bool gen[H], pass[H];
 #pragma unroll
-        for (int h = 0; h < H; ++h) top[k][h] = (uint32_t)hi[k][h];
-        P::prev(v, top[k]);
+        for (int h = 0; h < H; ++h) top[k][h] = hi[k][h];
+        P::prev(up, top[k]);
 #pragma unroll
         for (int h = 0; h < H; ++h) {
-            uint32_t carry = v[h], all = ~0u;
+            uint32_t carry = up[h], all = ~0u;
 #pragma unroll
             for (int j = 0; j < S; ++j) {
                 const uint64_t s = (uint64_t)t[k][h][j] + carry;
@@ -399,7 +486,7 @@ F32_FN void g_mont_mul_n(uint32_t (*r)[P::H][NW / 4], const uint32_t (*a)[P::H][
 // r = a * b / 2^(32 NW) mod p: one product (g_mont_mul_n).
 template <int NW, class P>
 F32_FN void g_mont_mul(uint32_t r[][NW / 4], const uint32_t a[][NW / 4], const uint32_t b[][NW / 4],
-                       const uint32_t p[][NW / 4], uint32_t n0) {
+                       const uint32_t p[][NW / 4], const uint32_t n0[NW / 4]) {
     using E = uint32_t[P::H][NW / 4];
     g_mont_mul_n<NW, P, 1>(reinterpret_cast<E*>(r), reinterpret_cast<const E*>(a), reinterpret_cast<const E*>(b),
                            p, n0);
@@ -411,7 +498,7 @@ F32_FN void g_mont_mul(uint32_t r[][NW / 4], const uint32_t a[][NW / 4], const u
 // by c_in.
 template <int NW, class P>
 F32_FN void g_from_limbs(uint32_t r[][NW / 4], const int32_t* src, size_t stride, const uint32_t c_in[NW],
-                         const uint32_t p[][NW / 4], uint32_t n0) {
+                         const uint32_t p[][NW / 4], const uint32_t n0[NW / 4]) {
     constexpr int S = NW / 4;
     uint32_t w[NW];
 #pragma unroll
@@ -434,7 +521,7 @@ F32_FN void g_from_limbs(uint32_t r[][NW / 4], const int32_t* src, size_t stride
 // lane, and lane l writes the limbs l, l + 4, ... when `store` holds.
 template <int NW, class P>
 F32_FN void g_to_limbs(int32_t* dst, size_t stride, const uint32_t a[][NW / 4], const uint32_t c_out[NW],
-                       const uint32_t p[][NW / 4], uint32_t n0, bool store) {
+                       const uint32_t p[][NW / 4], const uint32_t n0[NW / 4], bool store) {
     constexpr int S = NW / 4, H = P::H;
     uint32_t x[H][S], k[H][S], v[H], w[H][NW], got[H];
     g_slice<NW, P>(k, c_out);

@@ -17,7 +17,7 @@
 //
 // The product r = a b / R' mod p, R' = 2^(32 NW), p' = -p^-1 mod R':
 //   1. T = a b on the integer pipe (g_mul_wide_n): the group's word-sliced
-//      operand scanning of g_mont_mul_n without its m p half.  The window
+//      operand scanning, one word of a a step, with no m p.  The window
 //      shifts down one word a step, and the word that leaves it at lane 0,
 //      product word i, joins a queue of S words a lane that moves down the
 //      quad one word a step (lane 3 takes it), so T's low half ends sliced
@@ -222,7 +222,7 @@ F32_FN void g_carry_in_n(uint32_t (*t)[P::H][NW / 4], const uint32_t (*ov)[P::H]
 // a[k] and b[k] below 2^(32 NW): lo exact, hi with each lane's deferred
 // carry (below 4, at the weight of the next lane's first word; lane 3's is
 // 0) left in carry for the caller's next carry pass.  Step i adds a_i (broadcast from lane i / S) times the
-// lane's slice of b into its window, as g_mont_mul_n does, and shifts the
+// lane's slice of b into its window, and shifts the
 // window down one word: lane l takes lane l + 1's low word as its new top
 // word, with its own deferred carry `up` added there; lane 3's new top word
 // is its carry alone.  The word leaving lane 0 is product word i: lane 3

@@ -40,9 +40,14 @@
 //     per message gave 4,096 messages 128 warps for the card's 528 warp
 //     schedulers (132 SMs x 4), and one warp nearly fills a scheduler's
 //     issue; four lanes a message give 512 warps, each with a quarter of the
-//     stream.  Each lane reads all the limbs of an element (the group's four
-//     reads share their sectors), packs them and keeps its slice; the digest
-//     is gathered into every lane and lane l writes limbs l, l + 4, ....
+//     stream.  At one warp a scheduler no other warp hides the latency of a
+//     message's chain of dependent group products, so the group product
+//     steps a lane's whole slice at a time, four Montgomery steps in place
+//     of NW, which shortens its chain though it issues more instructions
+//     (g_mont_mul_n).  Each lane reads all the limbs of an element (the
+//     group's four reads share their sectors), packs them and keeps its
+//     slice; the digest is gathered into every lane and lane l writes limbs
+//     l, l + 4, ....
 //   * The sponge keeps its state in registers for all ceil(E / rate)
 //     permutations of a message.  Element j is converted on entry and added
 //     into rate word j % rate.  Blocks run as one rolled loop over one
@@ -143,10 +148,10 @@ F32_FN void permute_group(int32_t* out, const int32_t* in, size_t n, bool store,
     const GroupArith<NW, P> ar(c);
     uint32_t s[W][P::H][S];
 #pragma unroll
-    for (int w = 0; w < W; ++w) g_from_limbs<NW, P>(s[w], in + (size_t)w * NL * n, n, c.c_in, ar.p, c.n0);
+    for (int w = 0; w < W; ++w) g_from_limbs<NW, P>(s[w], in + (size_t)w * NL * n, n, c.c_in, ar.p, ar.n0);
     permute_state<W>(s, ar);
 #pragma unroll
-    for (int w = 0; w < W; ++w) g_to_limbs<NW, P>(out + (size_t)w * NL * n, n, s[w], c.c_out, ar.p, c.n0, store);
+    for (int w = 0; w < W; ++w) g_to_limbs<NW, P>(out + (size_t)w * NL * n, n, s[w], c.c_out, ar.p, ar.n0, store);
 }
 
 // The sponge over one message on a group of four lanes (lane policy P,
@@ -172,7 +177,7 @@ F32_FN void sponge_group(int32_t* out, const int32_t* in, size_t n, int E, bool 
             const int j = b * RATE + i;
             if (j < E) {
                 uint32_t e[P::H][S];
-                g_from_limbs<NW, P>(e, in + (size_t)j * NL * n, n, c.c_in, ar.p, c.n0);
+                g_from_limbs<NW, P>(e, in + (size_t)j * NL * n, n, c.c_in, ar.p, ar.n0);
                 ar.add(s[i], s[i], e);
             } else if (j == E) {
                 ar.add(s[i], s[i], c.one);
@@ -180,7 +185,7 @@ F32_FN void sponge_group(int32_t* out, const int32_t* in, size_t n, int E, bool 
         }
         permute_state<W>(s, ar);
     }
-    g_to_limbs<NW, P>(out, n, s[0], c.c_out, ar.p, c.n0, store);
+    g_to_limbs<NW, P>(out, n, s[0], c.c_out, ar.p, ar.n0, store);
 }
 
 #ifdef __CUDACC__
@@ -198,8 +203,9 @@ using Consts = AnemoiConsts<ANEMOI_WORDS>;
 // schedules the code.  Each is the fastest value of 1 to 8 in `python3 -m
 // anemoi_tpu_torch.bounds_sweep` on an H100 80GB HBM3 at 700 W (PERF.md has
 // the table), the four-lane kernel at 4,096 states, the one-thread kernel
-// at 65,536 and without spills (at 12 words the four-lane one spills 16
-// bytes outside its loop; without, it is 1.5 times as slow); a value
+// at 65,536 and without spills (at 12 words the four-lane one spills 8
+// bytes at width 4, outside its loop, and 4 blocks do not end it and run
+// 1.24 times as long; at 6 its width-2 form spills as well); a value
 // replaced the one before only when faster by more than the sweep's own
 // noise (the shipped build against its twin).  The sweep builds with each
 // value given by -D; measure again when nvcc changes.
@@ -215,7 +221,7 @@ using Consts = AnemoiConsts<ANEMOI_WORDS>;
 #define PERMUTE_MIN_BLOCKS 1
 #endif
 #ifndef PERMUTE_GROUP_MIN_BLOCKS
-#define PERMUTE_GROUP_MIN_BLOCKS 6
+#define PERMUTE_GROUP_MIN_BLOCKS 5
 #endif
 #endif
 

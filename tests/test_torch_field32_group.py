@@ -31,16 +31,22 @@ _SHIM = r"""
 // a value's NW words are the four lanes' slices, lane after lane
 template <int NW> using Slices = uint32_t (*)[NW / 4];
 template <int NW> using CSlices = const uint32_t (*)[NW / 4];
+// the products take n0 = -p^-1 mod 2^32 lifted to a slice's width, as GroupArith does
+template <int NW> void glift_n(uint32_t* r, const uint32_t* p, uint32_t n0) { g_lift_n0<NW>(r, p, n0); }
 template <int NW> void gmul_n(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p, uint32_t n0) {
+    uint32_t nd[NW / 4];
+    g_lift_n0<NW>(nd, p, n0);
     for (int i = 0; i < n; ++i)
         g_mont_mul<NW, HostLanes>(Slices<NW>(r + NW * i), CSlices<NW>(a + NW * i), CSlices<NW>(b + NW * i),
-                                  CSlices<NW>(p), n0);
+                                  CSlices<NW>(p), nd);
 }
 // two products side by side (g_mont_mul_n<2>, the lockstep columns): values 2i and 2i + 1
 template <int NW> void gmul2_n(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p, uint32_t n0) {
     using E = uint32_t[HostLanes::H][NW / 4];
+    uint32_t nd[NW / 4];
+    g_lift_n0<NW>(nd, p, n0);
     for (int i = 0; i + 1 < n; i += 2)
-        g_mont_mul_n<NW, HostLanes, 2>((E*)(r + NW * i), (const E*)(a + NW * i), (const E*)(b + NW * i), CSlices<NW>(p), n0);
+        g_mont_mul_n<NW, HostLanes, 2>((E*)(r + NW * i), (const E*)(a + NW * i), (const E*)(b + NW * i), CSlices<NW>(p), nd);
 }
 template <int NW> void gadd_n(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, const uint32_t* p) {
     for (int i = 0; i < n; ++i)
@@ -52,12 +58,16 @@ template <int NW> void gsub_n(uint32_t* r, const uint32_t* a, const uint32_t* b,
 }
 template <int NW> void gfrom_n(uint32_t* r, const int32_t* limbs, int n, const uint32_t* c_in, const uint32_t* p,
                                uint32_t n0) {
-    for (int i = 0; i < n; ++i) g_from_limbs<NW, HostLanes>(Slices<NW>(r + NW * i), limbs + i, (size_t)n, c_in, CSlices<NW>(p), n0);
+    uint32_t nd[NW / 4];
+    g_lift_n0<NW>(nd, p, n0);
+    for (int i = 0; i < n; ++i) g_from_limbs<NW, HostLanes>(Slices<NW>(r + NW * i), limbs + i, (size_t)n, c_in, CSlices<NW>(p), nd);
 }
 template <int NW> void gto_n(int32_t* limbs, const uint32_t* a, int n, const uint32_t* c_out, const uint32_t* p,
                              uint32_t n0, int store) {
+    uint32_t nd[NW / 4];
+    g_lift_n0<NW>(nd, p, n0);
     for (int i = 0; i < n; ++i)
-        g_to_limbs<NW, HostLanes>(limbs + i, (size_t)n, CSlices<NW>(a + NW * i), c_out, CSlices<NW>(p), n0, store != 0);
+        g_to_limbs<NW, HostLanes>(limbs + i, (size_t)n, CSlices<NW>(a + NW * i), c_out, CSlices<NW>(p), nd, store != 0);
 }
 extern "C" {
 void t_gmul(uint32_t* r, const uint32_t* a, const uint32_t* b, int n, int words, const uint32_t* p, uint32_t n0) {
@@ -80,6 +90,7 @@ void t_gto_limbs(int32_t* limbs, const uint32_t* a, int n, int words, const uint
                  uint32_t n0, int store) {
     BY_WORDS(gto_n, limbs, a, n, c_out, p, n0, store);
 }
+void t_lift_n0(uint32_t* r, int words, const uint32_t* p, uint32_t n0) { BY_WORDS(glift_n, r, p, n0); }
 unsigned t_lookahead(unsigned g, unsigned q) { return g_lookahead(g, q); }
 }
 """
@@ -201,3 +212,76 @@ def test_group_limb_boundary(lib, field):
     untouched = np.full_like(limbs, -1)
     lib.t_gto_limbs(_ptr(untouched), _ptr(words), n, nw, _ptr(c_out), _ptr(p), n0, 0)
     assert (untouched == -1).all()
+
+
+_IDS = list(FIELDS_20) + ["p256"] + list(FIELDS_30) + ["p384"]
+
+
+def _setup(prime):
+    nw = 8 if prime < 1 << 256 else 12
+    p, n0 = _words([prime], nw)[0], ctypes.c_uint32(-pow(prime, -1, 2**32) % 2**32)
+    return nw, p, n0, 1 << (32 * nw // 4)
+
+
+def _digits_for_top_m(prime, b, nw):
+    """A first operand a below 2^(32 NW) whose digits (lane slices) make
+    every one of the product's four steps take m = D - 1 against b (odd):
+    step i's sum of the running value and digit * b is p mod D in its low
+    digit, so m = that times -p^-1 is -1 mod D."""
+    d = 1 << (32 * nw // 4)
+    inv_b0 = pow(b % d, -1, d)
+    t, a = 0, 0
+    for i in range(4):
+        digit = (prime - t) * inv_b0 % d
+        assert (t + digit * b) * -pow(prime, -1, d) % d == d - 1
+        t = (t + digit * b + (d - 1) * prime) // d
+        a += digit << (32 * nw // 4 * i)
+    return a
+
+
+@pytest.mark.parametrize("prime", PRIMES, ids=_IDS)
+def test_group_product_digits(lib, prime):
+    """The product at the edges of its lane-wide digits (D = 2^(32 NW / 4)),
+    alone and two side by side: digits of all ones against lane slices of
+    all ones, the largest digit product and deferred high words; operands
+    that make every step's m = D - 1, the largest m * p; a first operand
+    from p up to 2^(32 NW) - 1 against a second below p, and the other way
+    round."""
+    nw, p, n0, d = _setup(prime)
+    r_words = 1 << (32 * nw)
+    rinv = pow(r_words, -1, prime)
+    ones = [sum((d - 1) << (32 * nw // 4 * l) for l in range(4) if mask >> l & 1) for mask in range(1, 16)]
+    below = [v for v in ones if v < prime] + [prime - 1, prime - 2, prime - d, prime // d * d - 1]
+    below = [v for v in below if v < prime]
+    pairs = [(x, y) for x in ones for y in below]  # a up to R - 1 (every digit all ones), b below p
+    rng = np.random.default_rng(7)
+    odd = [int.from_bytes(rng.bytes(48), "little") % prime | 1 for _ in range(40)]
+    odd = [y for y in odd + [1, prime - 2] if y < prime]
+    pairs += [(_digits_for_top_m(prime, y, nw), y) for y in odd]
+    big = [r_words - 1, r_words - 2, r_words - prime, prime, prime + 1] + _values(prime, 40, 8, below=r_words)
+    big = [v for v in big if v >= prime]
+    small = _values(prime, 8, 9)
+    pairs += [(x, y) for x in big for y in small]
+    pairs += [(y, x) for x in big for y in small]  # a below p, b from p up to R - 1
+    a, b = _words([x for x, _ in pairs], nw), _words([y for _, y in pairs], nw)
+    want = [x * y * rinv % prime for x, y in pairs]
+    n = len(pairs)
+    r = np.zeros_like(a)
+    lib.t_gmul(_ptr(r), _ptr(a), _ptr(b), n, nw, _ptr(p), n0)
+    assert _ints(r) == want
+    # two side by side, each value once as either column
+    for s in (0, 1):
+        m = (n - s) - (n - s) % 2
+        r[:] = 0
+        lib.t_gmul2(_ptr(r[s:]), _ptr(a[s:]), _ptr(b[s:]), m, nw, _ptr(p), n0)
+        assert _ints(r[s:s + m]) == want[s:s + m]
+
+
+@pytest.mark.parametrize("prime", PRIMES, ids=_IDS)
+def test_lift_n0(lib, prime):
+    """g_lift_n0, Newton's lift of n0 = -p^-1 mod 2^32 to a lane slice's
+    width, equals -p^-1 mod 2^(32 NW / 4): 64 bits at 8 words, 96 at 12."""
+    nw, p, n0, d = _setup(prime)
+    r = np.zeros(nw // 4, np.uint32)
+    lib.t_lift_n0(_ptr(r), nw, _ptr(p), n0)
+    assert _ints([r]) == [-pow(prime, -1, d) % d]
